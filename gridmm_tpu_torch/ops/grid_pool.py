@@ -1,0 +1,121 @@
+"""Instruction-relevance grid scatter-pool (twin of gridmm_tpu/ops/grid_pool.py).
+
+Replaces the reference's O(B * 196 * N) python cell-pooling loop
+(map_nav_src/models/vilmodel.py:788-824) with a batched op:
+
+    weight[b, i] = max_t f[b, i] . text_proj(txt[b, t])      (vilmodel.py:793-798)
+    pooled[b, c] = sum_{i in c} softmax_cell(weight)[i] * grid_proj(f)[b, i]
+    mask[b, c]   = any point landed in cell c                 (vilmodel.py:802-806)
+
+`grid_pool` dispatches by device: a CUDA tensor goes through the hand-written
+kernel (ops/cuda/grid_pool.py, csrc/grid_pool_fwd.cu), a CPU tensor through
+`grid_scatter_pool_raw`, the plain PyTorch version of the same contract and
+the kernel's oracle.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+# cells are padded to 256 in the denominator output (the JAX kernel's
+# CELL_PAD); the backward pass consumes it
+CELL_PAD = 256
+
+
+def instruction_relevance(
+    point_fts: torch.Tensor,      # (B, N, D) raw grid point features (f32)
+    projected_txt: torch.Tensor,  # (B, T, D) text_proj(txt_embeds)
+    txt_mask: Optional[torch.Tensor] = None,  # (B, T) bool; None = all tokens
+) -> torch.Tensor:
+    """Per-point relevance: max over text tokens of the dot product
+    (vilmodel.py:793-798). The reference takes the max over the PADDED text
+    without masking; txt_mask=None reproduces that quirk exactly."""
+    scores = torch.einsum("bnd,btd->bnt", point_fts.float(),
+                          projected_txt.float())
+    if txt_mask is not None:
+        scores = scores.masked_fill(~txt_mask[:, None, :], float("-inf"))
+    return scores.amax(dim=-1)
+
+
+def grid_scatter_pool_raw(
+    point_fts: torch.Tensor,  # (B, N, D) f32 or bf16 projected features
+    cell_ids: torch.Tensor,   # (B, N) int32 in [-1, num_cells); -1 invalid
+    weights: torch.Tensor,    # (B, N) f32 relevance logits
+    num_cells: int = 196,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch segment-softmax pool; returns (pooled (B, C, D) f32,
+    cell_mask (B, C) bool, denom (B, 256) f32).
+
+    Per point e_i = exp(w_i - cellmax[c_i]); numer[c] = sum e_i g_i and
+    denom[c] = sum e_i over the cell; pooled = numer / denom, empty cells 0
+    with mask False. Ids outside [0, num_cells) vanish. Accumulates in f32.
+    """
+    b, n, d = point_fts.shape
+    dev = point_fts.device
+    valid = (cell_ids >= 0) & (cell_ids < num_cells)
+    seg = torch.where(valid, cell_ids, torch.full_like(cell_ids, num_cells)
+                      ).long()
+    w = weights.float().masked_fill(~valid, float("-inf"))
+    cmax = torch.full((b, num_cells + 1), float("-inf"), device=dev
+                      ).scatter_reduce(1, seg, w, "amax")
+    e = torch.exp(w - cmax.gather(1, seg)).masked_fill(~valid, 0.0)
+
+    denom = torch.zeros((b, CELL_PAD + 1), device=dev).scatter_add(1, seg, e)
+    rows = (torch.arange(b, device=dev)[:, None] * (num_cells + 1) + seg)
+    numer = torch.zeros((b * (num_cells + 1), d), device=dev).index_add_(
+        0, rows.reshape(-1), (e[..., None] * point_fts.float()).reshape(-1, d))
+    numer = numer.view(b, num_cells + 1, d)[:, :num_cells]
+    denom = denom[:, :CELL_PAD]
+    return _finalize(numer, denom, num_cells)
+
+
+def _finalize(numer, denom_pad, num_cells):
+    """pooled = numer / denom with empty cells -> 0 (grid_pool_kernel.py
+    :135-141); shared by the plain version and the kernel wrapper."""
+    denom = denom_pad[:, :num_cells]
+    cell_mask = denom > 0
+    safe = torch.where(cell_mask, denom, torch.ones_like(denom))
+    pooled = (numer / safe[..., None]).masked_fill(~cell_mask[..., None], 0.0)
+    return pooled, cell_mask, denom_pad
+
+
+def grid_scatter_pool(point_fts, cell_ids, weights, num_cells: int = 196):
+    """Plain pool, (pooled, cell_mask) — gridmm_tpu grid_scatter_pool."""
+    pooled, cell_mask, _ = grid_scatter_pool_raw(point_fts, cell_ids,
+                                                 weights, num_cells)
+    return pooled, cell_mask
+
+
+def grid_pool_raw(point_fts, cell_ids, weights, num_cells: int = 196):
+    """Dispatching pool: the CUDA kernel for tensors on the card, the plain
+    version for tensors on the CPU. Returns (pooled, cell_mask, denom)."""
+    if point_fts.device.type == "cpu":
+        return grid_scatter_pool_raw(point_fts, cell_ids, weights, num_cells)
+    from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_fwd
+
+    numer, denom = grid_pool_fwd(point_fts, cell_ids, weights, num_cells)
+    return _finalize(numer, denom, num_cells)
+
+
+def grid_pool(point_fts, cell_ids, weights, num_cells: int = 196):
+    """Dispatching pool, (pooled, cell_mask)."""
+    pooled, cell_mask, _ = grid_pool_raw(point_fts, cell_ids, weights,
+                                         num_cells)
+    return pooled, cell_mask
+
+
+def relevance_weighted_grid(
+    point_fts, cell_ids, txt_embeds,
+    text_proj_w, text_proj_b,   # (D, D) in x @ W layout, (D,)
+    grid_proj_w, grid_proj_b,
+    txt_mask=None, num_cells: int = 196,
+):
+    """Full contract: text projection -> relevance -> projection -> pool
+    (vilmodel.py:793-807 end to end). Weights use the JAX (in, out) layout."""
+    f = point_fts.float()
+    proj_txt = txt_embeds.float() @ text_proj_w.float() + text_proj_b.float()
+    w = instruction_relevance(f, proj_txt, txt_mask)
+    g = f @ grid_proj_w.float() + grid_proj_b.float()
+    return grid_pool(g, cell_ids, w, num_cells)

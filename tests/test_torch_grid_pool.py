@@ -1,0 +1,106 @@
+"""Port vs JAX package: ops/grid_pool.py on the CPU.
+
+The port's plain pool (the CUDA kernel's oracle) is held against both JAX
+formulations — the XLA `grid_scatter_pool` and the Pallas kernel
+`pallas_grid_pool_raw` in interpret mode — at 1e-5 absolute and relative;
+the cell mask must match exactly."""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+import gridmm_tpu.ops.grid_pool as JP  # noqa: E402
+import gridmm_tpu_torch.ops.grid_pool as TP  # noqa: E402
+from gridmm_tpu.ops.pallas.grid_pool_kernel import \
+    pallas_grid_pool_raw  # noqa: E402
+from gridmm_tpu_torch.ops.cuda.grid_pool import GRID_POOL_FWD  # noqa: E402
+from torch_parity import assert_close, to_torch  # noqa: E402
+
+
+def pool_case(b=3, n=1024, d=128, seed=0):
+    """Random cells with ~5% invalid; row 1 all-invalid; cell 7 of row 2
+    holds one point; cells 0..49 of row 0 are empty."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((b, n, d)).astype(np.float32)
+    cells = rng.integers(0, 196, size=(b, n)).astype(np.int32)
+    cells[rng.random((b, n)) < 0.05] = -1
+    w = (rng.standard_normal((b, n)) * 3.0).astype(np.float32)
+    cells[1] = -1
+    cells[2][cells[2] == 7] = 8
+    cells[2, 100] = 7
+    cells[0][(cells[0] >= 0) & (cells[0] < 50)] = 60
+    return g, cells, w
+
+
+def test_plain_pool_matches_xla_and_pallas_interpret():
+    g, cells, w = pool_case()
+    got_p, got_m, got_d = TP.grid_scatter_pool_raw(*to_torch((g, cells, w)))
+    want_p, want_m = JP.grid_scatter_pool(jnp.asarray(g), jnp.asarray(cells),
+                                          jnp.asarray(w))
+    k_p, k_m, k_d = pallas_grid_pool_raw(jnp.asarray(g), jnp.asarray(cells),
+                                         jnp.asarray(w), chunk=256,
+                                         interpret=True)
+    for want in (want_m, k_m):
+        np.testing.assert_array_equal(got_m.numpy(), np.asarray(want))
+    assert_close(got_p, want_p)
+    assert_close(got_p, k_p)
+    assert_close(got_d, k_d)
+    assert got_d.shape == (3, 256) and got_p.dtype == torch.float32
+    assert not got_m[1].any() and (got_p[1] == 0).all()
+    assert got_m[2, 7] and not got_m[0, :50].any()
+    assert_close(got_p[2, 7], g[2, 100], rtol=1e-6, atol=1e-6)
+
+
+def test_bf16_features_pool_in_f32():
+    """A bf16 buffer pools its own (rounded) values, accumulated in f32."""
+    g, cells, w = pool_case(seed=1)
+    gb = torch.from_numpy(g).to(torch.bfloat16)
+    got_p, got_m = TP.grid_scatter_pool(gb, *to_torch((cells, w)))
+    want_p, want_m = JP.grid_scatter_pool(
+        jnp.asarray(gb.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(cells), jnp.asarray(w))
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    assert_close(got_p, want_p)
+
+
+def test_cpu_dispatch_runs_plain_version():
+    g, cells, w = pool_case(seed=2)
+    before = GRID_POOL_FWD.launches
+    got = TP.grid_pool(*to_torch((g, cells, w)))
+    want = TP.grid_scatter_pool(*to_torch((g, cells, w)))
+    assert GRID_POOL_FWD.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        GRID_POOL_FWD(*to_torch((g, cells, w)))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_relevance_and_weighted_grid(masked):
+    rng = np.random.default_rng(3)
+    b, n, t, d = 2, 300, 12, 64
+    f = rng.standard_normal((b, n, d)).astype(np.float32)
+    txt = rng.standard_normal((b, t, d)).astype(np.float32)
+    tmask = np.arange(t)[None] < np.array([[7], [12]])
+    wt, bt, wg, bg = (rng.standard_normal(s).astype(np.float32) * 0.1
+                      for s in ((d, d), (d,), (d, d), (d,)))
+    cells = rng.integers(-1, 196, size=(b, n)).astype(np.int32)
+    mask = tmask if masked else None
+    assert_close(TP.instruction_relevance(*to_torch((f, txt, mask))),
+                 JP.instruction_relevance(jnp.asarray(f), jnp.asarray(txt),
+                                          None if mask is None
+                                          else jnp.asarray(mask)))
+    got = TP.relevance_weighted_grid(*to_torch((f, cells, txt, wt, bt, wg,
+                                                bg, mask)))
+    want = JP.relevance_weighted_grid(
+        *map(jnp.asarray, (f, cells, txt, wt, bt, wg, bg)),
+        txt_mask=None if mask is None else jnp.asarray(mask))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert_close(got[0], want[0])
