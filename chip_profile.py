@@ -11,7 +11,10 @@ serving engine's point buffers with 15 steps, then:
     share of the window, kernel launches per step and the top device-time
     operators;
   * traces 20 calls of the dispatching grid pool at the same shapes and
-    prints each operator's device and host time.
+    prints each operator's device and host time;
+  * builds the clip_b32 tower (bf16, seeded random weights), fills a
+    16-panorama pipeline buffer with 15 encode_and_pool iterations, then
+    traces 3 encodes of 192 views and 3 pipeline iterations.
 
 Needs one NVIDIA card; writes the tables to chiprun_out/chip_profile.txt.
 """
@@ -27,8 +30,12 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import SERVE_SLOTS, card, request_text, step_row
+from chip_smoke import (PIPE_PANOS, SERVE_SLOTS, card, pipeline_inputs,
+                        request_text, step_row)
 from gridmm_tpu_torch.config import r2r_config
+from gridmm_tpu_torch.data.preprocess import ClipFeatureExtractor
+from gridmm_tpu_torch.models.clip_vit import clip_b32
+from gridmm_tpu_torch.pipeline import encode_and_pool
 from gridmm_tpu_torch.models.navigator import init_navigator
 from gridmm_tpu_torch.ops import geometry as G
 from gridmm_tpu_torch.ops import grid_pool as GP
@@ -125,6 +132,37 @@ def main() -> int:
         wall = time.perf_counter() - t0
     summarize(prof, wall, 20, "grid_pool_raw x20 (B=4 N=8832 D=768 f32)",
               out)
+    del eng, model
+
+    ex = ClipFeatureExtractor(clip_b32(), device="cuda")
+    images, steps, heads, state = pipeline_inputs(cfg, PIPE_PANOS,
+                                                  torch.bfloat16)
+
+    def iteration(state, depth, pos, heading):
+        return encode_and_pool(ex.model, images, state, depth, pos, heading,
+                               heads["txt"], heads["text_proj"],
+                               heads["grid_proj"], cfg.grid).state
+
+    for depth, pos, heading in steps:          # fill the buffer
+        state = iteration(state, depth, pos, heading)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ex.encode(images)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(prof, wall, 3, "encode x3 (clip_b32 bf16, 192 views)", out)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state = iteration(state, *steps[-1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(prof, wall, 3, f"encode_and_pool x3 ({PIPE_PANOS} panoramas, "
+              "full bf16 buffer)", out)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_profile.txt").write_text("\n".join(out) + "\n")

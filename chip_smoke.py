@@ -7,16 +7,28 @@ Needs one NVIDIA Hopper card and the CUDA toolkit; imports nothing of JAX.
 Phases, in order (any failure raises and the exit code is not 0):
 
   (a) device: require CUDA, print the card's name and power limit, TF32 off;
-  (b) build every kernel of the main path from csrc/ (one nvcc per source,
+  (b) build every kernel of the main paths from csrc/ (one nvcc per source,
       all at once);
-  (c) each kernel against its plain PyTorch version on the card;
-  (d) the main path: the serving engine at full R2R width (r2r_config(),
-      seeded random weights) answers 6 requests over 4 slots; logits are
-      checked, the kernel launch counts read, and the same steps rerun with
-      the plain pool must agree; then a tiny-width step on the card must
-      agree with the same step on the CPU;
+  (c) each kernel against its plain PyTorch version on the card, f32 and
+      bf16: the grid pool (K1), LayerNorm (K3), packed-qkv attention (K2)
+      and per-head attention (K4);
+  (d) the main paths, each driven with every launch count set to 0 just
+      before it and read just after:
+      - the serving engine at full R2R width (r2r_config(), seeded random
+        weights) answers 6 requests over 4 slots; logits are checked and the
+        same steps rerun with the plain ops must agree; then a tiny-width
+        step on the card must agree with the same step on the CPU;
+      - ClipFeatureExtractor.run at clip_b32() width over 32 synthetic
+        panoramas (batch 16), bf16, rerun with the plain ops; the same in
+        f32 over 4 panoramas;
+      - encode_and_pool, 16 panoramas x 12 views, iterated until the point
+        buffer fills (15 x 588 of 8832 points), bf16 buffer, rerun with the
+        plain ops; the same in f32 for 3 iterations;
+      - the --tiny preprocess tower (head_dim 16: the per-head kernel) on the
+        card against the same tower on the CPU;
   (e) times with CUDA events (kernel, plain version, library yardstick,
-      byte bound) and the serving step time, each beside the card;
+      bound), encode and pipeline views/s, the pipeline's peak device memory
+      and the serving step time, each beside the card;
   (f) the kernels line; (g) the result line, last.
 
 A longer report goes to chiprun_out/chip_smoke_report.json.
@@ -24,7 +36,10 @@ A longer report goes to chiprun_out/chip_smoke_report.json.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -32,20 +47,49 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from gridmm_tpu_torch import pipeline as pipe_mod
 from gridmm_tpu_torch.config import r2r_config, tiny_config
+from gridmm_tpu_torch.data.preprocess import (ClipFeatureExtractor,
+                                              synthetic_renderer)
+from gridmm_tpu_torch.models import clip_vit as clip_mod
 from gridmm_tpu_torch.models import navigator as nav_mod
+from gridmm_tpu_torch.models.clip_vit import (ClipVisionConfig, clip_b32,
+                                              init_clip_vision)
 from gridmm_tpu_torch.models.navigator import init_navigator
+from gridmm_tpu_torch.ops import attention as ATT
 from gridmm_tpu_torch.ops import geometry as G
 from gridmm_tpu_torch.ops import grid_pool as GP
+from gridmm_tpu_torch.ops import layernorm as LN
 from gridmm_tpu_torch.ops.cuda import build
+from gridmm_tpu_torch.ops.cuda.attention import (ATTENTION_FWD,
+                                                 ATTENTION_QKV_FWD)
 from gridmm_tpu_torch.ops.cuda.grid_pool import GRID_POOL_FWD, cell_max
+from gridmm_tpu_torch.ops.cuda.layernorm import LAYERNORM_FWD
+from gridmm_tpu_torch.pipeline import encode_and_pool
 from gridmm_tpu_torch.serve.engine import NavServingEngine
 from gridmm_tpu_torch.train.step import StepInputs, init_carry, nav_device_step
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-KERNELS = [GRID_POOL_FWD]
+# peak operation rates by input type (H100 SXM data sheet): bf16 products on
+# the tensor cores; f32 at full precision outside them
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+KERNELS = [GRID_POOL_FWD, ATTENTION_QKV_FWD, LAYERNORM_FWD, ATTENTION_FWD]
+SOURCES = ["grid_pool_fwd", "layernorm_fwd", "attention_qkv_fwd",
+           "attention_fwd"]
+CLIP_PANOS, CLIP_BATCH = 32, 16         # extractor run
+PIPE_PANOS, VIEWS, PIPE_TXT = 16, 12, 48  # pipeline run (bench.py's sizes)
+# bf16 tower or pipeline, kernels vs plain ops: the plain attention rounds
+# its probabilities to bf16 before PV where the kernel keeps them in f32
+# (2^-8 relative per value), and 12 residual blocks with random weights
+# carry such differences to the output; a relative Frobenius error
+# ||a - b|| / ||b|| of 2^-5 is the bound.
+BF16_REL_TOL = 2.0 ** -5
+# f32 tower or pipeline, kernels vs plain ops (TF32 off): summation order
+# and the online softmax only
+F32_TOL = 1e-4
 POOL_B, POOL_N, POOL_D = 8, 8832, 768
 SERVE_SLOTS, FIRST_STEPS, LATER_STEPS = 4, 15, 3
 # fused logits, kernel pool vs plain pool through the full-width navigator
@@ -68,13 +112,57 @@ def card() -> str:
     return out[torch.cuda.current_device()].strip()
 
 
+def reset_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def counts():
+    return {k.name: k.launches for k in KERNELS}
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Swap every dispatching op of the main paths for its plain version
+    (the kernels' oracles), and check that no kernel launched meanwhile."""
+    saved = (clip_mod.layernorm, clip_mod.attention_qkv, pipe_mod.grid_pool,
+             nav_mod.grid_pool)
+    clip_mod.layernorm = LN.layernorm_plain
+    clip_mod.attention_qkv = ATT.attention_qkv_plain
+    pipe_mod.grid_pool = GP.grid_scatter_pool
+    nav_mod.grid_pool = GP.grid_scatter_pool
+    before = counts()
+    try:
+        yield
+    finally:
+        (clip_mod.layernorm, clip_mod.attention_qkv, pipe_mod.grid_pool,
+         nav_mod.grid_pool) = saved
+    require(counts() == before, "a kernel launched on the plain path")
+
+
+def rel_err(a, b) -> float:
+    """||a - b|| / ||b|| over float32 copies."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
 def cuda_ms(fn, iters=25, warmup=5) -> float:
-    """Mean ms per call over `iters` calls, CUDA events, after warm-up."""
+    """Mean device ms per call over `iters` calls, CUDA events, after
+    warm-up. The stream is held by a spin kernel while the host enqueues the
+    calls, so the events time them back to back on the device and a call
+    shorter than its Python wrapper is not timed at the host's pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # twice the measured enqueue time at <= 2 GHz, plus 2 ms
+    torch.cuda._sleep(int((2.0 * enqueue_s + 2e-3) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -254,33 +342,26 @@ def main_path(report):
           f"max_points {cfg.shapes.max_points} "
           f"(init {time.time() - t0:.1f}s)")
 
-    for k in KERNELS:
-        k.launches = 0
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.time()
     fused_kernel, eng = run_engine(model, cfg, rows, texts)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {k.name: k.launches for k in KERNELS}
+    launches = counts()
     n_steps = FIRST_STEPS + LATER_STEPS
     print(f"  served {n_req} requests over {SERVE_SLOTS} slots in {n_steps} "
           f"steps ({wall:.2f}s with first-call overheads); buffer count "
           f"{eng._carry.point_state.count.tolist()}")
-    print(f"  launches during the main path: {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} never launched on the path")
+    print(f"  launches during the serving path: {launches}")
     require(launches["grid_pool_fwd"] == n_steps,
             f"grid_pool_fwd launched {launches['grid_pool_fwd']} times in "
             f"{n_steps} steps")
     report["grid_pool_fwd"]["launches"] = launches["grid_pool_fwd"]
 
     # the same steps with the plain pool on the card
-    real_pool = nav_mod.grid_pool
-    nav_mod.grid_pool = GP.grid_scatter_pool
-    try:
+    with plain_ops():
         fused_plain, _ = run_engine(model, cfg, rows, texts)
-    finally:
-        nav_mod.grid_pool = real_pool
     worst = 0.0
     for s, (a, b) in enumerate(zip(fused_kernel, fused_plain)):
         fin = torch.isfinite(b)
@@ -380,6 +461,458 @@ def time_pool(g, cells, w, label, dev_name):
     return times
 
 
+# ------------------------------------------------ (c) the encoder's kernels
+def check_layernorm_kernel(report):
+    """(c) K3 vs plain at the tower's rows (192 images x 50 tokens, C=768)
+    and at C=64 (the tiny tower): f32 within 1e-5 (summation order), bf16
+    within one bf16 ulp (2^-7 relative: both round nearly one f32 value)."""
+    worst = 0.0
+    rng = np.random.default_rng(11)
+    for rows, c in ((9600, 768), (2400, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy((rng.standard_normal((rows, c)) * 2.0 + 0.5
+                                  ).astype(np.float32)).to("cuda", dtype)
+            w = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(
+                np.float32)).cuda()
+            b = torch.from_numpy((rng.standard_normal(c) * 0.1).astype(
+                np.float32)).cuda()
+            got = LAYERNORM_FWD(x, w, b)
+            want = LN.layernorm_plain(x, w, b)
+            torch.cuda.synchronize()
+            rtol, atol = ((1e-5, 1e-5) if dtype == torch.float32
+                          else (2.0 ** -7, 1e-5))
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                       atol=atol)
+            err = (got.float() - want.float()).abs().max().item()
+            worst = max(worst, err)
+            print(f"  layernorm_fwd ({rows}, {c}) {str(dtype)[6:]:8s}: "
+                  f"max|diff| {err:.3e} (rtol {rtol:.1e})")
+    report["layernorm_fwd"]["max_abs_err"] = worst
+
+
+def attn_atol(dtype, v):
+    """f32: 2e-5 (summation order, online softmax); bf16: the plain version
+    rounds the probabilities to bf16 before PV and both round the output,
+    each within 2^-8 relative, so 2^-6 x max|v| bounds the difference."""
+    if dtype == torch.float32:
+        return 2e-5
+    return 2.0 ** -6 * v.float().abs().max().item()
+
+
+def check_attention_kernels(report):
+    """(c) K2 at clip_b32 (192, 50, 2304) and B/16 (32, 197, 2304); K4 at
+    hd 16, 64 and 128 with L = 50 and 197; both dtypes."""
+    rng = np.random.default_rng(12)
+    worst = {"attention_qkv_fwd": 0.0, "attention_fwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, length in ((192, 50), (32, 197)):
+            qkv = torch.from_numpy((rng.standard_normal((b, length, 2304))
+                                    * 2.0).astype(np.float32)).to("cuda",
+                                                                  dtype)
+            got = ATTENTION_QKV_FWD(qkv, 12)
+            want = ATT.attention_qkv_plain(qkv, 12)
+            torch.cuda.synchronize()
+            atol = attn_atol(dtype, qkv[..., 1536:])
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2e-5 if atol == 2e-5 else 0.0,
+                                       atol=atol)
+            err = (got.float() - want.float()).abs().max().item()
+            worst["attention_qkv_fwd"] = max(worst["attention_qkv_fwd"], err)
+            print(f"  attention_qkv_fwd ({b}, {length}, 2304) "
+                  f"{str(dtype)[6:]:8s}: max|diff| {err:.3e} "
+                  f"(atol {atol:.3e})")
+        for hd in (16, 64, 128):
+            for length in (50, 197):
+                q, k, v = (torch.from_numpy((rng.standard_normal(
+                    (768, length, hd)) * 2.0).astype(np.float32)).to(
+                        "cuda", dtype) for _ in range(3))
+                got = ATTENTION_FWD(q, k, v)
+                want = ATT.attention_plain(q, k, v)
+                torch.cuda.synchronize()
+                atol = attn_atol(dtype, v)
+                torch.testing.assert_close(
+                    got.float(), want.float(),
+                    rtol=2e-5 if atol == 2e-5 else 0.0, atol=atol)
+                err = (got.float() - want.float()).abs().max().item()
+                worst["attention_fwd"] = max(worst["attention_fwd"], err)
+                print(f"  attention_fwd (768, {length}, {hd}) "
+                      f"{str(dtype)[6:]:8s}: max|diff| {err:.3e} "
+                      f"(atol {atol:.3e})")
+    for name, err in worst.items():
+        report[name]["max_abs_err"] = err
+
+
+# ------------------------------------------------ (d) the encoder's paths
+def pano_ids(n, scan="smoke"):
+    return [(scan, f"vp{i:03d}") for i in range(n)]
+
+
+def run_extractor(ex, n_panos, seed=0):
+    """All sink outputs of one run, in order: [(vp, tokens, depth)]."""
+    rows = []
+    done = ex.run(synthetic_renderer(pano_ids(n_panos), seed=seed),
+                  lambda s, v, t, d: rows.append((v, t, d)))
+    require(done == n_panos, f"extractor encoded {done} of {n_panos}")
+    return rows
+
+
+def stack_tokens(rows):
+    return torch.from_numpy(np.stack([t for _, t, _ in rows]))
+
+
+def extractor_path(report):
+    """(d) ClipFeatureExtractor.run at clip_b32() width, bf16: K2 12 and K3
+    26 launches per forward; the same panoramas through the plain ops; then
+    f32 over 4 panoramas, kernels vs plain within F32_TOL."""
+    cfg = clip_b32()
+    ex = ClipFeatureExtractor(cfg, batch_panos=CLIP_BATCH, device="cuda")
+    run_extractor(ex, CLIP_BATCH)          # first-call overheads
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = run_extractor(ex, CLIP_PANOS)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    forwards = -(-CLIP_PANOS // CLIP_BATCH)
+    print(f"  extractor, clip_b32 bf16, {CLIP_PANOS} panoramas in batches of "
+          f"{CLIP_BATCH}: {wall:.3f}s host clock "
+          f"({CLIP_PANOS * VIEWS / wall:.1f} views/s with rendering); "
+          f"launches {launches}")
+    require(launches["attention_qkv_fwd"] == 12 * forwards,
+            f"attention_qkv_fwd: {launches['attention_qkv_fwd']} launches "
+            f"in {forwards} forwards, want 12 each")
+    require(launches["layernorm_fwd"] == 26 * forwards,
+            f"layernorm_fwd: {launches['layernorm_fwd']} launches in "
+            f"{forwards} forwards, want 26 each")
+    require([v for v, _, _ in rows] == [v for _, v in pano_ids(CLIP_PANOS)],
+            "extractor changed the panorama order")
+    tokens = stack_tokens(rows)
+    require(tuple(tokens.shape) == (CLIP_PANOS, VIEWS, 50, 768)
+            and tokens.dtype == torch.float32, f"tokens {tokens.shape}")
+    require(torch.isfinite(tokens).all().item(), "non-finite tokens")
+    require(all(d.shape == (12, 128, 128) and d.dtype == np.uint16
+                for _, _, d in rows), "depth shape or type")
+    with plain_ops():
+        plain = stack_tokens(run_extractor(ex, CLIP_PANOS))
+    err_bf16 = rel_err(tokens, plain)
+    print(f"  tokens, kernels vs plain ops (bf16): relative error "
+          f"{err_bf16:.3e} (bound {BF16_REL_TOL:.3e}), max|diff| "
+          f"{(tokens - plain).abs().max().item():.3e} of max|tokens| "
+          f"{plain.abs().max().item():.3e}")
+    require(err_bf16 <= BF16_REL_TOL, "bf16 tokens differ from plain ops")
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    ex32 = ClipFeatureExtractor(cfg32, batch_panos=4, device="cuda")
+    got = stack_tokens(run_extractor(ex32, 4, seed=1))
+    with plain_ops():
+        want = stack_tokens(run_extractor(ex32, 4, seed=1))
+    torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+    err_f32 = (got - want).abs().max().item()
+    print(f"  tokens, kernels vs plain ops (f32, 4 panoramas): max|diff| "
+          f"{err_f32:.3e} (tolerance {F32_TOL})")
+    report["extractor"] = {
+        "panoramas": CLIP_PANOS, "batch_panos": CLIP_BATCH,
+        "launches": launches, "wall_s": wall,
+        "views_per_s_with_rendering": CLIP_PANOS * VIEWS / wall,
+        "bf16_rel_err_vs_plain": err_bf16, "f32_max_abs_diff_vs_plain":
+            err_f32}
+    return ex
+
+
+def pipeline_inputs(cfg, b, dtype, seed=0, iters=None):
+    """bench.py's pipeline inputs on the card: uint8 frames (the same every
+    iteration, as there), per-iteration depth, pose, text and projections."""
+    gc = cfg.grid
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    images = torch.randint(0, 256, (b * VIEWS, 224, 224, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    steps = []
+    for _ in range(iters or gc.max_steps):
+        depth = torch.randint(0, 18000, (b, VIEWS, gc.patches_per_view),
+                              generator=gen, device="cuda").float()
+        pos = torch.rand((b, 2), generator=gen, device="cuda") * 8.0 - 4.0
+        heading = torch.rand((b,), generator=gen, device="cuda") * 6.0 - 3.0
+        steps.append((depth, pos, heading))
+    d = gc.feature_dim
+    heads = dict(txt=randn(b, PIPE_TXT, d, scale=0.3),
+                 text_proj=(randn(d, d, scale=0.02),
+                            torch.zeros(d, device="cuda")),
+                 grid_proj=(randn(d, d, scale=0.02),
+                            torch.zeros(d, device="cuda")))
+    state = G.PointCloudState.create(b, gc, cfg.shapes.max_points,
+                                     feature_dtype=dtype, device="cuda")
+    return images, steps, heads, state
+
+
+def run_pipeline(model, cfg, b, dtype, seed=0, iters=None):
+    """encode_and_pool over the inputs' steps; returns the per-step outputs
+    (cells, pooled, mask on the card) and the final state."""
+    images, steps, heads, state = pipeline_inputs(cfg, b, dtype, seed, iters)
+    outs = []
+    for depth, pos, heading in steps:
+        out = encode_and_pool(model, images, state, depth, pos, heading,
+                              heads["txt"], heads["text_proj"],
+                              heads["grid_proj"], cfg.grid)
+        state = out.state
+        outs.append((out.cells, out.pooled, out.cell_mask))
+    return outs, state
+
+
+def compare_pipelines(got, want, tol_f32: bool):
+    """Cells and masks equal; pooled within F32_TOL (f32) or BF16_REL_TOL
+    relative (bf16). Returns the worst pooled difference measure."""
+    worst = 0.0
+    for i, ((c, p, m), (wc, wp, wm)) in enumerate(zip(got, want)):
+        require(torch.equal(c, wc), f"iteration {i}: cell ids differ")
+        require(torch.equal(m, wm), f"iteration {i}: cell masks differ")
+        if tol_f32:
+            torch.testing.assert_close(p, wp, rtol=F32_TOL, atol=F32_TOL)
+            worst = max(worst, (p - wp).abs().max().item())
+        else:
+            err = rel_err(p, wp)
+            require(err <= BF16_REL_TOL, f"iteration {i}: pooled relative "
+                    f"error {err:.3e} above {BF16_REL_TOL:.3e}")
+            worst = max(worst, err)
+    return worst
+
+
+def pipeline_path(report):
+    """(d) encode_and_pool at bench.py's sizes (16 panoramas x 12 views,
+    clip_b32 bf16, bf16 buffer) until the buffer fills: K1 once, K2 12 and
+    K3 26 times per iteration; then the same inputs with the plain ops; then
+    f32 (tower and buffer) for 3 iterations against the plain ops."""
+    cfg = r2r_config()
+    iters = cfg.grid.max_steps
+    model = init_clip_vision(clip_b32(), seed=0, device="cuda")
+    run_pipeline(model, cfg, PIPE_PANOS, torch.bfloat16, iters=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # earlier phases' models included
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    reset_counts()
+    t0 = time.perf_counter()
+    outs, state = run_pipeline(model, cfg, PIPE_PANOS, torch.bfloat16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  pipeline, {PIPE_PANOS} panoramas x {VIEWS} views, {iters} "
+          f"iterations (buffer {state.count.tolist()[0]} of "
+          f"{cfg.shapes.max_points} points): {wall:.3f}s host clock; "
+          f"launches {launches}")
+    print(f"  device memory: peak {peak / 2**30:.3f} GiB allocated, of which "
+          f"{held / 2**30:.3f} GiB were held before the run (the tower's f32 "
+          f"weights {weights / 2**30:.3f} GiB and earlier phases' models); "
+          f"the pipeline's own peak {(peak - held) / 2**30:.3f} GiB")
+    require(launches["grid_pool_fwd"] == iters,
+            f"grid_pool_fwd launched {launches['grid_pool_fwd']} times in "
+            f"{iters} iterations")
+    require(launches["attention_qkv_fwd"] == 12 * iters,
+            f"attention_qkv_fwd launched {launches['attention_qkv_fwd']}")
+    require(launches["layernorm_fwd"] == 26 * iters,
+            f"layernorm_fwd launched {launches['layernorm_fwd']}")
+    require(int(state.count[0]) == iters * cfg.grid.points_per_step,
+            "buffer count")
+    cells, pooled, mask = outs[-1]
+    require(tuple(pooled.shape) == (PIPE_PANOS, 196, 768)
+            and torch.isfinite(pooled).all().item(), "pooled shape or NaN")
+    require(((cells >= -1) & (cells < 196)).all().item()
+            and mask.any(dim=1).all().item(), "cell ids or masks")
+    with plain_ops():
+        plain, _ = run_pipeline(model, cfg, PIPE_PANOS, torch.bfloat16)
+    err_bf16 = compare_pipelines(outs, plain, tol_f32=False)
+    print(f"  pooled, kernels vs plain ops (bf16, {iters} iterations): cells "
+          f"and masks equal, worst relative error {err_bf16:.3e} (bound "
+          f"{BF16_REL_TOL:.3e})")
+    del outs, plain, state
+
+    model32 = init_clip_vision(
+        dataclasses.replace(clip_b32(), compute_dtype="float32"), seed=0,
+        device="cuda")
+    got, _ = run_pipeline(model32, cfg, PIPE_PANOS, torch.float32, seed=1,
+                          iters=3)
+    with plain_ops():
+        want, _ = run_pipeline(model32, cfg, PIPE_PANOS, torch.float32,
+                               seed=1, iters=3)
+    err_f32 = compare_pipelines(got, want, tol_f32=True)
+    print(f"  pooled, kernels vs plain ops (f32, 3 iterations): cells and "
+          f"masks equal, max|diff| {err_f32:.3e} (tolerance {F32_TOL})")
+    report["pipeline"] = {
+        "panoramas": PIPE_PANOS, "views": VIEWS, "iterations": iters,
+        "launches": launches, "wall_s_first_fill": wall,
+        "peak_device_bytes": peak, "held_before_bytes": held,
+        "tower_weight_bytes": weights,
+        "pipeline_peak_bytes": peak - held, "bf16_rel_err_vs_plain": err_bf16,
+        "f32_max_abs_diff_vs_plain": err_f32}
+    return model, cfg
+
+
+def tiny_tower_path(report):
+    """(d) the --tiny preprocess tower (width 64, 4 heads: head_dim 16, so
+    the per-head kernel) through the extractor on the card against the same
+    tower on the CPU, f32, within F32_TOL."""
+    cfg = ClipVisionConfig(input_resolution=224, patch_size=32, width=64,
+                           layers=1, heads=4, compute_dtype="float32")
+    models = {d: init_clip_vision(cfg, seed=5, device=d)
+              for d in ("cuda", "cpu")}
+    exs = {d: ClipFeatureExtractor(cfg, models[d], batch_panos=2, device=d)
+           for d in models}
+    torch.cuda.synchronize()
+    reset_counts()
+    got = stack_tokens(run_extractor(exs["cuda"], 4, seed=2))
+    torch.cuda.synchronize()
+    launches = counts()
+    want = stack_tokens(run_extractor(exs["cpu"], 4, seed=2))
+    print(f"  tiny tower (hd 16), 4 panoramas, card vs CPU: launches "
+          f"{launches}")
+    require(launches["attention_fwd"] == 2,
+            f"attention_fwd launched {launches['attention_fwd']} times in "
+            "2 one-layer forwards")
+    require(launches["attention_qkv_fwd"] == 0, "hd 16 took the qkv kernel")
+    torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+    err = (got - want).abs().max().item()
+    print(f"  tokens, card (kernels) vs CPU (plain): max|diff| {err:.3e} "
+          f"(tolerance {F32_TOL})")
+    report["tiny_tower"] = {"launches": launches,
+                            "card_vs_cpu_max_abs_diff": err}
+    return launches["attention_fwd"]
+
+
+# ------------------------------------------------------- (e) encoder times
+def rotating_ms(fn, arg_sets, iters=30):
+    """cuda_ms over calls that cycle through `arg_sets`, so that a kernel
+    whose inputs fit in the 50 MB L2 still reads them from device memory."""
+    i = [0]
+
+    def call():
+        fn(*arg_sets[i[0] % len(arg_sets)])
+        i[0] += 1
+    return cuda_ms(call, iters=iters)
+
+
+def copies_for(nbytes):
+    """Input sets needed to spread the reads over more than twice the L2."""
+    return max(1, math.ceil(100e6 / nbytes))
+
+
+def bound(nbytes, ops, dtype):
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
+
+
+def time_kernel(label, kernel, call, plain, library, arg_sets, nbytes, ops,
+                dtype, dev_name):
+    """Kernel, plain and library times at one shape; returns a dict."""
+    before = kernel.launches
+    t = {"ms": rotating_ms(call, arg_sets),
+         "plain_ms": rotating_ms(plain, arg_sets),
+         "library_ms": rotating_ms(library, arg_sets)}
+    require(kernel.launches > before, f"timed {kernel.name} did not launch")
+    t["bound_ms"], t["bound_by"] = bound(nbytes, ops, dtype)
+    t["shape"] = label
+    print(f"  {kernel.name} {label}: kernel {t['ms']:.5f} ms, plain "
+          f"{t['plain_ms']:.5f}, library {t['library_ms']:.5f}, bound "
+          f"{t['bound_ms']:.5f} ms ({t['bound_by']}) [{dev_name}]")
+    return t
+
+
+def time_encoder_kernels(dev_name):
+    """(e) K3 at the tower's LayerNorm shape, K2 at clip_b32 and at B/16,
+    K4 at the tiny tower's shape and at B/16 width; the yardsticks are
+    F.layer_norm and F.scaled_dot_product_attention on the split heads."""
+    out = {}
+    rng = np.random.default_rng(21)
+
+    def cuda(shape, dtype, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to("cuda", dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows, c = CLIP_BATCH * VIEWS * 50, 768
+    nbytes = 2 * rows * c * 2 + 2 * c * 4
+    sets = [(cuda((rows, c), bf16), cuda((c,), f32) + 1.0, cuda((c,), f32))
+            for _ in range(copies_for(nbytes))]
+    out["layernorm_fwd"] = time_kernel(
+        f"({rows}, {c}) bf16", LAYERNORM_FWD, LAYERNORM_FWD,
+        LN.layernorm_plain,
+        lambda x, w, b: F.layer_norm(x, (c,), w.to(bf16), b.to(bf16), 1e-5),
+        sets, nbytes, 8 * rows * c, f32, dev_name)
+
+    def sdpa_packed(qkv, heads=12):
+        b, length, _ = qkv.shape
+        q, k, v = qkv.view(b, length, 3, heads, 64).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v)
+
+    for b, length, key in ((CLIP_BATCH * VIEWS, 50, "attention_qkv_fwd"),
+                           (CLIP_BATCH * VIEWS, 197, "attention_qkv_fwd_p16")):
+        nbytes = b * length * 2304 * 2 + b * length * 768 * 2
+        sets = [(cuda((b, length, 2304), bf16),)
+                for _ in range(copies_for(nbytes))]
+        out[key] = time_kernel(
+            f"({b}, {length}, 2304) bf16", ATTENTION_QKV_FWD,
+            lambda x: ATTENTION_QKV_FWD(x, 12),
+            lambda x: ATT.attention_qkv_plain(x, 12), sdpa_packed, sets,
+            nbytes, 4 * b * 12 * length * length * 64, bf16, dev_name)
+
+    for bh, length, hd, dtype, key in (
+            (4 * VIEWS * 4, 50, 16, f32, "attention_fwd"),
+            (CLIP_BATCH * VIEWS * 12, 197, 64, bf16, "attention_fwd_p16")):
+        size = 2 if dtype == bf16 else 4
+        nbytes = 4 * bh * length * hd * size
+        sets = [tuple(cuda((bh, length, hd), dtype) for _ in range(3))
+                for _ in range(copies_for(nbytes))]
+        out[key] = time_kernel(
+            f"({bh}, {length}, {hd}) {str(dtype)[6:]}", ATTENTION_FWD,
+            ATTENTION_FWD, ATT.attention_plain,
+            F.scaled_dot_product_attention, sets, nbytes,
+            4 * bh * length * length * hd, dtype, dev_name)
+    return out
+
+
+def time_encode_and_pipeline(ex, model, cfg, dev_name):
+    """(e) encode views/s (clip_b32 bf16 forward of 192 uint8 views already
+    on the card) and pipeline views/s with the buffer full, host clock
+    around synchronised runs of 10."""
+    images, steps, heads, state = pipeline_inputs(cfg, PIPE_PANOS,
+                                                  torch.bfloat16)
+    for _ in range(3):
+        ex.encode(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        ex.encode(images)
+    torch.cuda.synchronize()
+    encode_s = (time.perf_counter() - t0) / 10
+    for depth, pos, heading in steps:          # fill the buffer
+        state = encode_and_pool(model, images, state, depth, pos, heading,
+                                heads["txt"], heads["text_proj"],
+                                heads["grid_proj"], cfg.grid).state
+    torch.cuda.synchronize()
+    depth, pos, heading = steps[-1]
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state = encode_and_pool(model, images, state, depth, pos, heading,
+                                heads["txt"], heads["text_proj"],
+                                heads["grid_proj"], cfg.grid).state
+    torch.cuda.synchronize()
+    pipe_s = (time.perf_counter() - t0) / 10
+    views = PIPE_PANOS * VIEWS
+    res = {"encode_ms_per_192_views": encode_s * 1e3,
+           "encode_views_per_s": views / encode_s,
+           "pipeline_ms_per_iteration": pipe_s * 1e3,
+           "pipeline_views_per_s": views / pipe_s}
+    print(f"  encode, clip_b32 bf16, {views} views: {encode_s * 1e3:.3f} ms "
+          f"({views / encode_s:.1f} views/s); pipeline, full buffer: "
+          f"{pipe_s * 1e3:.3f} ms per iteration ({views / pipe_s:.1f} "
+          f"views/s) [{dev_name}]")
+    return res
+
+
 def main() -> int:
     # (a) device
     if not torch.cuda.is_available():
@@ -392,14 +925,14 @@ def main() -> int:
     print(f"(a) card: {dev_name}")
     print(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
-    report = {"card": dev_name, "grid_pool_fwd": {
-        "name": GRID_POOL_FWD.name, "route": "cuda",
-        "source": GRID_POOL_FWD.source, "replaces": GRID_POOL_FWD.replaces,
-        "bound_by": "bytes"}}
+    report = {"card": dev_name}
+    for k in KERNELS:
+        report[k.name] = {"name": k.name, "route": "cuda",
+                          "source": k.source, "replaces": k.replaces}
 
     # (b) build
     t0 = time.time()
-    logs = build.build_all(["grid_pool_fwd"])
+    logs = build.build_all(SOURCES)
     build_s = time.time() - t0
     print(f"(b) built {sorted(logs) or 'nothing (current)'} in "
           f"{build_s:.1f}s")
@@ -412,11 +945,20 @@ def main() -> int:
     # (c) kernels vs plain versions
     print("(c) kernels against their plain versions")
     check_pool_kernel(report)
+    check_layernorm_kernel(report)
+    check_attention_kernels(report)
 
-    # (d) main path
+    # (d) main paths
     print("(d) main path: serving engine, r2r_config() width")
     eng, cfg, rows = main_path(report)
     report["tiny_cpu_vs_card_max_abs_diff"] = tiny_cpu_reference()
+    print("(d) main path: CLIP extractor and encode_and_pool, clip_b32() "
+          "width")
+    ex = extractor_path(report)
+    clip_model, pipe_cfg = pipeline_path(report)
+    report["attention_fwd"]["launches"] = tiny_tower_path(report)
+    for name in ("attention_qkv_fwd", "layernorm_fwd"):
+        report[name]["launches"] = report["pipeline"]["launches"][name]
 
     # (e) times
     print("(e) times")
@@ -430,17 +972,24 @@ def main() -> int:
     timing = {"main_path_B4_f32": time_pool(
         ps.features, cells, ps.weights, "main path B=4 N=8832 D=768 f32",
         dev_name)}
+    timing["main_path_B4_f32"]["bound_by"] = "bytes"
     for dtype in (torch.float32, torch.bfloat16):
         g, c, w = pool_case("random", POOL_B, dtype, seed=5)
         timing[f"B8_{str(dtype)[6:]}"] = time_pool(
             g, c, w, f"B=8 N=8832 D=768 {str(dtype)[6:]} (5% invalid)",
             dev_name)
         del g, c, w
+    timing.update(time_encoder_kernels(dev_name))
     report["timing"] = timing
-    k = report["grid_pool_fwd"]
-    main_t = timing["main_path_B4_f32"]
-    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-        k[key] = main_t[key]
+    for name, key in (("grid_pool_fwd", "main_path_B4_f32"),
+                      ("layernorm_fwd", "layernorm_fwd"),
+                      ("attention_qkv_fwd", "attention_qkv_fwd"),
+                      ("attention_fwd", "attention_fwd")):
+        for field in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms"):
+            report[name][field] = timing[key][field]
+    report["throughput"] = time_encode_and_pipeline(ex, clip_model,
+                                                    pipe_cfg, dev_name)
 
     rng = np.random.default_rng(9)
     step_rows = {slot: step_row(cfg, rng, 5) for slot in range(SERVE_SLOTS)}
@@ -467,9 +1016,10 @@ def main() -> int:
     # (f) kernels line, (g) result line
     print(f"card: {dev_name}")
     print(json.dumps({"kernels": [
-        {key: k[key] for key in (
+        {key: report[k.name][key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,8 @@ Input: nested dicts of numpy arrays, e.g. `jax.tree.map(np.asarray, params)`
 (with or without the outer {"params": ...}). The port's modules carry the
 flax names, so the mapping is mechanical:
 
-  * a path component `name_<k>` is the ModuleList/Sequential entry `name.<k>`;
+  * a path component `name_<k>` is the ModuleList/Sequential entry `name.<k>`,
+    except the CLIP block's `ln_1` and `ln_2`, which are plain names;
   * the f32 LayerNorm wrapper's inner `ln` level disappears;
   * Dense `kernel` (in, out) -> Linear `weight` (out, in), transposed;
   * LayerNorm `scale` -> `weight`; Embed `embedding` -> `weight`.
@@ -22,6 +23,8 @@ import numpy as np
 import torch
 
 _INDEXED = re.compile(r"^(.+)_(\d+)$")
+# flax module names that end in a number but are not list entries
+_NOT_INDEXED = {"ln_1", "ln_2"}
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -39,7 +42,7 @@ def torch_name(path) -> str:
     for m in mods:
         if m == "ln":
             continue
-        hit = _INDEXED.match(m)
+        hit = None if m in _NOT_INDEXED else _INDEXED.match(m)
         parts.extend(hit.groups() if hit else (m,))
     parts.append({"kernel": "weight", "scale": "weight",
                   "embedding": "weight"}.get(leaf, leaf))

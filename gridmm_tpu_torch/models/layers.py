@@ -41,13 +41,14 @@ class Dense(nn.Linear):
     as flax promotes them); parameters stay f32."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features)
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
 class LayerNorm(nn.Module):

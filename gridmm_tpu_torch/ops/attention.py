@@ -1,0 +1,96 @@
+"""Attention of the ViT towers (twin of gridmm_tpu/ops/pallas/attention_qkv.py
+and gridmm_tpu/ops/pallas/attention.py, and of the einsum path in
+gridmm_tpu/models/clip_vit.py:162-192).
+
+  * `attention_qkv(qkv, heads)` takes the packed (B, L, 3W) projection and
+    returns the context (B, L, W);
+  * `attention(q, k, v)` takes (BH, L, hd) tensors.
+
+Each dispatches by device. On a CPU tensor the plain PyTorch version runs.
+On a CUDA tensor a kernel always runs, chosen as the JAX package chooses:
+head_dim 64 goes to the packed-qkv kernel (csrc/attention_qkv_fwd.cu, the
+only head_dim `fused_attention_qkv` takes), every other head_dim is split
+into (B*H, L, hd) and goes to the per-head kernel (csrc/attention_fwd.cu).
+Both kernels keep scores and softmax in f32 on chip, so `scores_f32` (the
+JAX `attn_scores_f32` knob, which trades score precision for bytes moved)
+only changes the plain version.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def split_heads(qkv, heads: int):
+    """(B, L, 3W) packed projection -> q, k, v, each (B*H, L, hd)
+    contiguous."""
+    b, length, w3 = qkv.shape
+    hd = w3 // 3 // heads
+    t = qkv.reshape(b, length, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    return tuple(t[i].reshape(b * heads, length, hd).contiguous()
+                 for i in range(3))
+
+
+def merge_heads(ctx, batch: int):
+    """(B*H, L, hd) -> (B, L, H*hd)."""
+    bh, length, hd = ctx.shape
+    heads = bh // batch
+    return ctx.reshape(batch, heads, length, hd).transpose(1, 2).reshape(
+        batch, length, heads * hd)
+
+
+def attention_qkv_plain(qkv, heads: int, scores_f32: bool = True):
+    """Plain version: split the projection, per-head scores, softmax in f32,
+    probabilities in the input type, context accumulated in f32 and
+    returned in the input type (clip_vit.py:162-192)."""
+    b, length, w3 = qkv.shape
+    width = w3 // 3
+    hd = width // heads
+    dt = qkv.dtype
+    q, k, v = (t.reshape(b, length, heads, hd)
+               for t in qkv.split(width, dim=-1))
+    if scores_f32:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        scores = scores / math.sqrt(hd)
+    else:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.tensor(
+            hd ** 0.5, dtype=dt)
+    probs = torch.softmax(scores.float(), dim=-1).to(dt)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(dt)
+    return ctx.reshape(b, length, width)
+
+
+def attention_plain(q, k, v):
+    """Plain version of the per-head kernel: softmax(q k^T / sqrt(hd)) v with
+    f32 scores, probabilities in v's type, f32 accumulation
+    (ops/pallas/attention.py:26-45)."""
+    hd = q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+        1.0 / math.sqrt(hd))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def attention(q, k, v):
+    """Dispatching (BH, L, hd) attention: the per-head kernel on the card,
+    the plain version on the CPU."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v)
+    from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_FWD
+
+    return ATTENTION_FWD(q, k, v)
+
+
+def attention_qkv(qkv, heads: int, scores_f32: bool = True):
+    """Dispatching packed-qkv attention (see the module docstring)."""
+    if qkv.device.type == "cpu":
+        return attention_qkv_plain(qkv, heads, scores_f32)
+    from gridmm_tpu_torch.ops.cuda.attention import (ATTENTION_QKV_FWD,
+                                                     QKV_HEAD_DIM)
+
+    qkv = qkv.contiguous()
+    if qkv.shape[-1] == 3 * heads * QKV_HEAD_DIM:
+        return ATTENTION_QKV_FWD(qkv, heads)
+    return merge_heads(attention(*split_heads(qkv, heads)), qkv.shape[0])

@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own into
 `gridmm_tpu_torch/build/lib<name>-<hash>.so` for sm_90a (Hopper), where
-<hash> covers the source and the flags, so an edited source never loads a
-stale library. Builds happen at first use, never at import; `build_all`
+<hash> covers the source, the shared headers (`csrc/*.cuh`) and the flags,
+so an edited source never loads a stale library. Builds happen at first use, never at import; `build_all`
 starts one nvcc per source, all at once.
 """
 
@@ -37,9 +37,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -80,3 +82,12 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C function `symbol` of csrc/<name>.cu with its argument types
+    set; it returns a cudaError_t as an int."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

@@ -34,14 +34,11 @@ class GridPoolFwd:
 
     def _function(self):
         if self._fn is None:
-            fn = build.load(SOURCE).gridmm_grid_pool_fwd
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = build.function(SOURCE, "gridmm_grid_pool_fwd", [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         return self._fn
 
     def __call__(self, point_fts, cell_ids, weights, num_cells: int = 196):

@@ -192,3 +192,54 @@ def step_rows(cfg, rng, t, b=1):
         vp_obj_mask=np.zeros((b, v), bool),
         obj_target=np.zeros((b,), i32),
     )
+
+
+# the fields the port's ClipVisionConfig drops, for the same reason
+DROPPED_CLIP_FIELDS = {"use_pallas_attention", "use_pallas_ln",
+                       "use_qkv_attention"}
+
+
+def port_clip_config(jcfg):
+    """The port's ClipVisionConfig with the values of a JAX one."""
+    from gridmm_tpu_torch.models.clip_vit import ClipVisionConfig
+
+    return ClipVisionConfig(**{
+        f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)
+        if f.name not in DROPPED_CLIP_FIELDS})
+
+
+def openai_visual_state_dict(width=64, layers=2, patch=8, res=56, seed=0):
+    """A numpy-made state dict in the OpenAI CLIP checkpoint's key layout:
+    the visual tower's keys plus the projection and one text-tower key the
+    importer must leave alone, under DDP's 'module.' prefix for one key."""
+    rng = np.random.default_rng(seed)
+    tokens = (res // patch) ** 2 + 1
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * 0.1)
+
+    sd = {"visual.conv1.weight": arr(width, 3, patch, patch),
+          "visual.class_embedding": arr(width),
+          "visual.positional_embedding": arr(tokens, width),
+          "visual.ln_pre.weight": 1.0 + arr(width),
+          "visual.ln_pre.bias": arr(width),
+          "module.visual.ln_post.weight": 1.0 + arr(width),
+          "visual.ln_post.bias": arr(width),
+          "visual.proj": arr(width, 32),
+          "token_embedding.weight": arr(10, 32)}
+    for i in range(layers):
+        s = f"visual.transformer.resblocks.{i}"
+        sd.update({f"{s}.attn.in_proj_weight": arr(3 * width, width),
+                   f"{s}.attn.in_proj_bias": arr(3 * width),
+                   f"{s}.attn.out_proj.weight": arr(width, width),
+                   f"{s}.attn.out_proj.bias": arr(width),
+                   f"{s}.ln_1.weight": 1.0 + arr(width),
+                   f"{s}.ln_1.bias": arr(width),
+                   f"{s}.mlp.c_fc.weight": arr(4 * width, width),
+                   f"{s}.mlp.c_fc.bias": arr(4 * width),
+                   f"{s}.mlp.c_proj.weight": arr(width, 4 * width),
+                   f"{s}.mlp.c_proj.bias": arr(width),
+                   f"{s}.ln_2.weight": 1.0 + arr(width),
+                   f"{s}.ln_2.bias": arr(width)})
+    return sd
