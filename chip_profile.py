@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the serving step's time goes on the card (gridmm_tpu_torch).
+"""Where the serving step's, the encoder's and the train update's time goes
+on the card (gridmm_tpu_torch).
 
     python3 chip_profile.py [--steps 5]
 
@@ -14,7 +15,11 @@ serving engine's point buffers with 15 steps, then:
     prints each operator's device and host time;
   * builds the clip_b32 tower (bf16, seeded random weights), fills a
     16-panorama pipeline buffer with 15 encode_and_pool iterations, then
-    traces 3 encodes of 192 views and 3 pipeline iterations.
+    traces 3 encodes of 192 views and 3 pipeline iterations;
+  * makes one make_train_step update of the full-width navigator on a
+    synthetic batch of cfg.train.batch_size trajectories x 15 steps as
+    warm-up, then traces one more: launches, device time by operator and
+    the device-busy share of the update.
 
 Needs one NVIDIA card; writes the tables to chiprun_out/chip_profile.txt.
 """
@@ -40,6 +45,8 @@ from gridmm_tpu_torch.models.navigator import init_navigator
 from gridmm_tpu_torch.ops import geometry as G
 from gridmm_tpu_torch.ops import grid_pool as GP
 from gridmm_tpu_torch.serve.engine import NavServingEngine
+from gridmm_tpu_torch.train.step import create_train_state, make_train_step
+from gridmm_tpu_torch.train.synthetic import synthetic_trajectory_batch
 
 ROOT = Path(__file__).resolve().parent
 
@@ -52,8 +59,10 @@ def summarize(prof, wall_s, per, label, out, top=15):
     """Device-busy share, launches per call and the top operators."""
     events = prof.key_averages()
     # device-side events only (kernels, memcpy, memset): the operator rows
-    # above them report the same device time again
-    kernels = [e for e in events if "CUDA" in str(e.device_type)]
+    # above them report the same device time again, and so does the span of
+    # a user annotation (torch wraps Optimizer.step in one)
+    kernels = [e for e in events if "CUDA" in str(e.device_type)
+               and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(device_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)
     lines = [f"== {label}: window {wall_s * 1e3:.3f} ms host clock, device "
@@ -163,6 +172,26 @@ def main() -> int:
         wall = time.perf_counter() - t0
     summarize(prof, wall, 3, f"encode_and_pool x3 ({PIPE_PANOS} panoramas, "
               "full bf16 buffer)", out)
+    del ex, images, steps, heads, state
+
+    model = init_navigator(cfg.model, seed=1, device="cuda")
+    model.eval()               # dropout off, as in chip_smoke.py's updates
+    train_state = create_train_state(cfg, model)
+    train_step = make_train_step(cfg)
+    b, s = cfg.train.batch_size, cfg.train.max_action_len
+    batch = synthetic_trajectory_batch(cfg, b, s, seed=0, device="cuda")
+    train_step(train_state, batch, seed=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(train_state, batch, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(prof, wall, 1,
+              f"train update x1 ({b} trajectories x {s} steps, "
+              f"r2r_config() f32, remat_steps={cfg.train.remat_steps})", out,
+              top=25)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_profile.txt").write_text("\n".join(out) + "\n")

@@ -10,8 +10,9 @@ Phases, in order (any failure raises and the exit code is not 0):
   (b) build every kernel of the main paths from csrc/ (one nvcc per source,
       all at once);
   (c) each kernel against its plain PyTorch version on the card, f32 and
-      bf16: the grid pool (K1), LayerNorm (K3), packed-qkv attention (K2)
-      and per-head attention (K4);
+      bf16: the grid pool (K1), LayerNorm (K3), packed-qkv attention (K2),
+      per-head attention (K4) and the two passes of the pool's backward
+      (K5a, K5b);
   (d) the main paths, each driven with every launch count set to 0 just
       before it and read just after:
       - the serving engine at full R2R width (r2r_config(), seeded random
@@ -26,9 +27,17 @@ Phases, in order (any failure raises and the exit code is not 0):
         plain ops; the same in f32 for 3 iterations;
       - the --tiny preprocess tower (head_dim 16: the per-head kernel) on the
         card against the same tower on the CPU;
+      - training at full R2R width: train_navigator over the synthetic
+        world (one teacher and one sample iteration, with evaluation), then
+        three make_train_step updates on one synthetic batch of
+        cfg.train.batch_size trajectories x 15 steps; the loss must fall,
+        the backward kernels must launch once per step and update, the same
+        loss and gradients through the plain ops must agree, and a tiny
+        update on the card must agree with the same on the CPU;
   (e) times with CUDA events (kernel, plain version, library yardstick,
-      bound), encode and pipeline views/s, the pipeline's peak device memory
-      and the serving step time, each beside the card;
+      bound), encode and pipeline views/s, the pipeline's peak device memory,
+      the serving step time, and the train update's time and peak memory,
+      each beside the card;
   (f) the kernels line; (g) the result line, last.
 
 A longer report goes to chiprun_out/chip_smoke_report.json.
@@ -65,20 +74,31 @@ from gridmm_tpu_torch.ops import layernorm as LN
 from gridmm_tpu_torch.ops.cuda import build
 from gridmm_tpu_torch.ops.cuda.attention import (ATTENTION_FWD,
                                                  ATTENTION_QKV_FWD)
-from gridmm_tpu_torch.ops.cuda.grid_pool import GRID_POOL_FWD, cell_max
+from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
+                                                 GRID_POOL_BWD2,
+                                                 GRID_POOL_FWD, cell_max,
+                                                 grid_pool_bwd)
 from gridmm_tpu_torch.ops.cuda.layernorm import LAYERNORM_FWD
 from gridmm_tpu_torch.pipeline import encode_and_pool
 from gridmm_tpu_torch.serve.engine import NavServingEngine
-from gridmm_tpu_torch.train.step import StepInputs, init_carry, nav_device_step
+from gridmm_tpu_torch.env.discrete import DiscreteNavEnv, synthetic_episodes
+from gridmm_tpu_torch.env.world import SyntheticWorld
+from gridmm_tpu_torch.train.agent import NavAgent
+from gridmm_tpu_torch.train.loop import train_navigator
+from gridmm_tpu_torch.train.step import (StepInputs, create_train_state,
+                                         init_carry, make_train_step,
+                                         nav_device_step, trajectory_loss)
+from gridmm_tpu_torch.train.synthetic import synthetic_trajectory_batch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 # peak operation rates by input type (H100 SXM data sheet): bf16 products on
 # the tensor cores; f32 at full precision outside them
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-KERNELS = [GRID_POOL_FWD, ATTENTION_QKV_FWD, LAYERNORM_FWD, ATTENTION_FWD]
+KERNELS = [GRID_POOL_FWD, ATTENTION_QKV_FWD, LAYERNORM_FWD, ATTENTION_FWD,
+           GRID_POOL_BWD1, GRID_POOL_BWD2]
 SOURCES = ["grid_pool_fwd", "layernorm_fwd", "attention_qkv_fwd",
-           "attention_fwd"]
+           "attention_fwd", "grid_pool_bwd"]
 CLIP_PANOS, CLIP_BATCH = 32, 16         # extractor run
 PIPE_PANOS, VIEWS, PIPE_TXT = 16, 12, 48  # pipeline run (bench.py's sizes)
 # bf16 tower or pipeline, kernels vs plain ops: the plain attention rounds
@@ -96,6 +116,9 @@ SERVE_SLOTS, FIRST_STEPS, LATER_STEPS = 4, 15, 3
 # in f32 (TF32 off): the pools differ only in summation order (~1e-6
 # relative), which 13 transformer layers may amplify to ~1e-5
 LOGIT_TOL = 1e-4
+TRAIN_STEPS = 15               # cfg.train.max_action_len: 15 x 588 = 8820
+LOOP_BATCH, LOOP_ITERS = 4, 2  # train_navigator: one teacher, one sample
+UPDATES = 3                    # make_train_step on one synthetic batch
 
 
 def require(cond, msg: str) -> None:
@@ -277,6 +300,84 @@ def check_pool_kernel(report):
                       f"{(got_d - want_d).abs().max().item():.3e}")
                 del g, cells, w, numer, denom, want_p
     report["grid_pool_fwd"]["max_abs_err"] = worst
+
+
+def bwd_inputs(g, cells, w, seed):
+    """The forward's residuals (kernel) and a random cotangent for (g, cells,
+    w) on the card."""
+    b, _, d = g.shape
+    cmax = cell_max(cells, w)
+    numer, denom = GRID_POOL_FWD(g, cells, w, cmax=cmax)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cot = torch.randn((b, 196, d), generator=gen, device="cuda")
+    del numer
+    return cmax, denom, cot
+
+
+def check_pool_bwd_kernels(report):
+    """(c) K5a and K5b against grid_pool_bwd_terms on the card, B = 4 and
+    16, N = 8820 (the stacked buffer: 15 x 588, not a multiple of 512) and
+    8832, D = 768, f32 and bf16 features, random and edges.
+      dg: f32 within 1e-5 x max|dg| (one product on each side); bf16 within
+          one bf16 ulp of each value (2^-7 relative: both sides round the
+          same f32 product, which may sit on a rounding boundary);
+      s:  within 1e-5 x max|s| (a 768-term f32 dot product, other order);
+      S, dw: within 1e-4 x their max (S adds ~45 terms per cell with f32
+          atomics in an order that varies from run to run)."""
+    worst = {"grid_pool_bwd1": 0.0, "grid_pool_bwd2": 0.0}
+    for kind in ("random", "edges"):
+        base = pool_case(kind, 16, torch.float32, seed=3)
+        for b in (4, 16):
+            for n in (8820, 8832):
+                for dtype in (torch.float32, torch.bfloat16):
+                    g, cells, w = (base[0][:b, :n].to(dtype).contiguous(),
+                                   base[1][:b, :n].contiguous(),
+                                   base[2][:b, :n].contiguous())
+                    cmax, denom, cot = bwd_inputs(g, cells, w, seed=b + n)
+                    got = grid_pool_bwd(g, cells, w, cmax, denom, cot)
+                    want = GP.grid_pool_bwd_terms(g, cells, w, denom, cot)
+                    torch.cuda.synchronize()
+                    require(got[0].dtype == dtype
+                            and got[1].dtype == torch.float32,
+                            "gradient dtypes")
+                    dg, want_dg = got[0].float(), want[0].float()
+                    if dtype == torch.float32:
+                        torch.testing.assert_close(
+                            dg, want_dg, rtol=0,
+                            atol=1e-5 * want_dg.abs().max().item())
+                    else:
+                        torch.testing.assert_close(dg, want_dg,
+                                                   rtol=2.0 ** -7, atol=1e-30)
+                    errs = {"dg": (dg - want_dg).abs().max().item()}
+                    for name, a, ref, tol in (("dw", got[1], want[1], 1e-4),
+                                              ("s", got[2], want[2], 1e-5),
+                                              ("S", got[3], want[3], 1e-4)):
+                        torch.testing.assert_close(
+                            a, ref, rtol=0,
+                            atol=tol * ref.abs().max().item(),
+                            msg=lambda m, name=name: f"{name}: {m}")
+                        errs[name] = (a - ref).abs().max().item()
+                    if kind == "edges":
+                        invalid = cells < 0
+                        require((dg[1] == 0).all() and (got[1][1] == 0).all()
+                                and (dg[invalid] == 0).all()
+                                and (got[1][invalid] == 0).all(),
+                                "invalid points have a gradient")
+                        require(got[1][2, 100].abs().item() <= 1e-6,
+                                "one-point cell: dw is not 0")
+                    worst["grid_pool_bwd1"] = max(worst["grid_pool_bwd1"],
+                                                  errs["dg"], errs["s"])
+                    worst["grid_pool_bwd2"] = max(worst["grid_pool_bwd2"],
+                                                  errs["dw"])
+                    print(f"  grid_pool_bwd B={b} N={n} {str(dtype)[6:]:8s} "
+                          f"{kind:6s}: max|diff| dg {errs['dg']:.3e} s "
+                          f"{errs['s']:.3e} S {errs['S']:.3e} dw "
+                          f"{errs['dw']:.3e} (max|dw| "
+                          f"{want[1].abs().max().item():.3e})")
+                    del g, cells, w, cmax, denom, cot, got, want, dg, want_dg
+        del base
+    for name, err in worst.items():
+        report[name]["max_abs_err"] = err
 
 
 def run_engine(model, cfg, rows, texts):
@@ -782,6 +883,313 @@ def tiny_tower_path(report):
     return launches["attention_fwd"]
 
 
+# ------------------------------------------------ (d) the training path
+def synthetic_agents(model, cfg, batch, seed=0):
+    """Train and val agents over the synthetic world (768-wide features),
+    both holding `model`."""
+    world = SyntheticWorld(num_scans=2, nodes_per_scan=10, feat_dim=768,
+                           seed=seed)
+    envs = [DiscreteNavEnv(world, world.graphs,
+                           synthetic_episodes(world, num=n, seed=seed + i),
+                           batch_size=batch, seed=seed, name=name)
+            for i, (n, name) in enumerate(((24, "train"), (8, "val")))]
+    return [NavAgent(model, cfg, env) for env in envs]
+
+
+def loss_and_grads(model, cfg, batch):
+    """One teacher-forced loss and its gradients, no update; dropout off."""
+    model.zero_grad(set_to_none=True)
+    loss = trajectory_loss(model, cfg, batch)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def compare_grads(got, want, rel, what):
+    """Every leaf within `rel` of the leaf's max, plus 1e-6 of the largest
+    leaf's max (a gradient that is zero analytically, such as that of a bias
+    added to every logit of a softmax, holds rounding noise only). Returns
+    the worst max|diff| / max|leaf| over the leaves above that floor."""
+    require(set(got) == set(want), f"{what}: gradient leaves differ")
+    floor = 1e-6 * max(ref.abs().max().item() for ref in want.values())
+    worst = 0.0
+    for name, ref in want.items():
+        scale = ref.abs().max().item()
+        err = (got[name].to(ref.device) - ref).abs().max().item()
+        require(err <= rel * scale + floor,
+                f"{what}: {name} differs by {err:.3e} of max {scale:.3e}")
+        if scale > floor:
+            worst = max(worst, err / scale)
+    return worst
+
+
+def largest_batch(model, cfg, want):
+    """cfg.train.batch_size trajectories, or the largest power of two below
+    it whose update fits the card."""
+    b = want
+    while True:
+        batch = synthetic_trajectory_batch(cfg, b, TRAIN_STEPS, seed=0,
+                                           device="cuda")
+        try:
+            loss_and_grads(model, cfg, batch)
+            return b, batch
+        except torch.cuda.OutOfMemoryError:
+            require(b > 1, "one trajectory does not fit the card")
+            del batch
+            model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            b = 1 << ((b - 1).bit_length() - 1)
+            print(f"  batch does not fit: trying {b}")
+
+
+def training_path(report):
+    """(d) training at r2r_config() width, f32: the rollout->replay loop on
+    the synthetic world, then make_train_step updates on one synthetic
+    batch, each with the launch counts reset before and read after."""
+    cfg = r2r_config()
+    require(cfg.train.max_action_len == TRAIN_STEPS
+            and TRAIN_STEPS * cfg.grid.points_per_step == 8820,
+            "the stacked buffer is not 15 x 588 points")
+    model = init_navigator(cfg.model, seed=1, device="cuda")
+    remat = cfg.train.remat_steps
+    k1_per_update = TRAIN_STEPS * (2 if remat else 1)
+
+    # the loop: rollout (teacher, then sample) -> pad to 15 steps -> update,
+    # with an evaluation after each iteration; dropout on in the updates
+    loop_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=LOOP_BATCH))
+    agent, val_agent = synthetic_agents(model, loop_cfg, LOOP_BATCH)
+    before = model.text_proj.weight.detach().clone()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = train_navigator(loop_cfg, model, agent, val_agent,
+                             iters=LOOP_ITERS, log_every=1, eval_batches=1,
+                             seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    print(f"  train_navigator, synthetic world, batch {LOOP_BATCH}, "
+          f"{LOOP_ITERS} iterations (teacher, sample) with evaluation: "
+          f"{wall:.2f}s; best SPL {result.best_spl:.2f} at iteration "
+          f"{result.best_iter}; launches {launches}")
+    require(launches["grid_pool_bwd1"] == LOOP_ITERS * TRAIN_STEPS
+            and launches["grid_pool_bwd2"] == LOOP_ITERS * TRAIN_STEPS,
+            "backward kernels: not one launch per step and update")
+    require(launches["grid_pool_fwd"] > LOOP_ITERS * k1_per_update,
+            "forward kernel: the rollouts did not launch it")
+    require(result.best_iter in (1, 2) and 0.0 <= result.best_spl <= 100.0
+            and np.isfinite(list(result.final_metrics.values())).all(),
+            f"loop result {result}")
+    require(not torch.equal(model.text_proj.weight, before)
+            and all(torch.isfinite(p).all().item()
+                    for p in model.parameters()),
+            "the loop left the weights unchanged or not finite")
+    report["train_loop"] = {"batch": LOOP_BATCH, "iterations": LOOP_ITERS,
+                            "wall_s": wall, "launches": launches,
+                            "best_spl": result.best_spl}
+    del agent, val_agent
+
+    # the updates, dropout off so that the loss is comparable across them
+    model.eval()
+    b, batch = largest_batch(model, cfg, cfg.train.batch_size)
+    print(f"  train update batch: {b} trajectories x {TRAIN_STEPS} steps"
+          + ("" if b == cfg.train.batch_size else
+             f" (cfg.train.batch_size {cfg.train.batch_size} does not fit)"))
+    loss_k, grads_k = loss_and_grads(model, cfg, batch)
+    with plain_ops():
+        loss_p, grads_p = loss_and_grads(model, cfg, batch)
+    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
+            f"loss, kernels {loss_k} vs plain ops {loss_p}")
+    worst = compare_grads(grads_k, grads_p, 1e-3, "kernels vs plain ops")
+    print(f"  loss and gradients, kernels vs plain ops: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (1e-5 relative); {len(grads_p)} gradient leaves, "
+          f"worst max|diff| / max|leaf| {worst:.3e} (bound 1e-3)")
+    del grads_k, grads_p
+
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    metrics = []
+    for _ in range(UPDATES):
+        m = step(state, batch, seed=0)
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"  {UPDATES} make_train_step updates (AdamW, clip "
+          f"{cfg.train.grad_norm_clip}): (loss, grad norm) "
+          f"{[(round(a, 5), round(g, 4)) for a, g in metrics]}; launches "
+          f"{launches}")
+    require(np.isfinite(metrics).all(), "loss or grad norm not finite")
+    require(all(a > c for (a, _), (c, _) in zip(metrics, metrics[1:])),
+            "the loss did not fall over the updates on one batch")
+    require(launches["grid_pool_bwd1"] == UPDATES * TRAIN_STEPS
+            and launches["grid_pool_bwd2"] == UPDATES * TRAIN_STEPS,
+            "backward kernels: not one launch per step and update")
+    require(launches["grid_pool_fwd"] == UPDATES * k1_per_update,
+            f"forward kernel: {launches['grid_pool_fwd']} launches, want "
+            f"{k1_per_update} per update (remat_steps={remat})")
+    report["train_updates"] = {
+        "batch": b, "steps": TRAIN_STEPS, "updates": UPDATES,
+        "loss_grad_norm": metrics, "launches": launches,
+        "loss_kernels": loss_k, "loss_plain_ops": loss_p,
+        "worst_grad_diff_vs_plain": worst, "remat_steps": remat}
+    for k in (GRID_POOL_BWD1, GRID_POOL_BWD2):
+        report[k.name]["launches"] = launches[k.name]
+    return state, step, batch, cfg
+
+
+def tiny_update_cpu_reference():
+    """A tiny-config update on the card (kernels) against the same update on
+    the CPU (plain versions): loss and grad norm within 1e-4 relative,
+    gradients within 1e-3 of each leaf's max."""
+    cfg = tiny_config()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = init_navigator(cfg.model, seed=4, device=dev)
+        batch = synthetic_trajectory_batch(cfg, 2, 3, seed=2, device=dev)
+        m = make_train_step(cfg)(create_train_state(cfg, model), batch,
+                                 seed=0)
+        out[dev] = (m["loss"].item(), m["grad_norm"].item(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if p.grad is not None})
+    for i, name in enumerate(("loss", "grad norm")):
+        require(abs(out["cuda"][i] - out["cpu"][i])
+                <= 1e-4 * abs(out["cpu"][i]),
+                f"tiny update {name}: {out['cuda'][i]} vs {out['cpu'][i]}")
+    worst = compare_grads(out["cuda"][2], out["cpu"][2], 1e-3,
+                          "tiny update, card vs CPU")
+    print(f"  tiny config update, card (kernels) vs CPU (plain): loss "
+          f"{out['cuda'][0]:.6f} vs {out['cpu'][0]:.6f}, worst gradient "
+          f"max|diff| / max|leaf| {worst:.3e} (bound 1e-3)")
+    return worst
+
+
+# --------------------------------------------------- (e) training times
+def bwd_bytes(g, cells):
+    """Bytes pass 1 must move: the features of valid points, every gradient
+    row, the cotangent, ids and weights, s, and the per-cell residuals."""
+    b, n, d = g.shape
+    valid = int(((cells >= 0) & (cells < 196)).sum())
+    return (valid * d * g.element_size() + b * n * d * g.element_size()
+            + b * 196 * d * 4 + b * n * 12 + b * (196 + 2 * 256) * 4)
+
+
+def time_pool_bwd(g, cells, w, label, dev_name):
+    """(e) K5a and K5b at one shape: each kernel alone, the plain version
+    (grid_pool_bwd_terms, both passes; pass 2 alone for K5b) and the
+    library yardstick (autograd through the index_add_ formulation of the
+    forward, which covers both passes, so it stands in K5a's row only)."""
+    b, n, d = g.shape
+    cmax, denom, cot = bwd_inputs(g, cells, w, seed=1)
+    d_fts, d_w, s, big_s = grid_pool_bwd(g, cells, w, cmax, denom, cot)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    code = 0 if g.dtype == torch.float32 else 1
+
+    def pass1():
+        big_s.zero_()
+        GRID_POOL_BWD1.launch(
+            g.device, g.data_ptr(), code, cells.data_ptr(), w.data_ptr(),
+            cmax.data_ptr(), denom.data_ptr(), cot.data_ptr(),
+            d_fts.data_ptr(), s.data_ptr(), big_s.data_ptr(), b, n, d, 196,
+            sms * 32)
+
+    def pass2(cells, w, cmax, denom, big_s, s, d_w, valid, idx):
+        GRID_POOL_BWD2.launch(
+            cells.device, cells.data_ptr(), w.data_ptr(), cmax.data_ptr(),
+            denom.data_ptr(), big_s.data_ptr(), s.data_ptr(),
+            d_w.data_ptr(), b, n, 196)
+
+    valid = (cells >= 0) & (cells < 196)
+    idx = torch.where(valid, cells, torch.zeros_like(cells)).long()
+
+    def plain_pass2(cells, w, cmax, denom, big_s, s, d_w, valid, idx):
+        den = denom[:, :196].gather(1, idx)
+        p = (torch.exp(w - cmax.gather(1, idx)) / den.clamp_min(1e-30)
+             ).masked_fill(~valid, 0.0)
+        return p * (s - big_s.gather(1, idx))
+
+    gg = g.detach().requires_grad_()
+    ww = w.detach().requires_grad_()
+
+    pooled = GP.grid_scatter_pool_raw(gg, cells, ww)[0]
+
+    def library():
+        torch.autograd.grad(pooled, (gg, ww), cot, retain_graph=True)
+
+    t1 = {"ms": cuda_ms(pass1, iters=10, warmup=2),
+          "plain_ms": cuda_ms(lambda: GP.grid_pool_bwd_terms(
+              g, cells, w, denom, cot), iters=5, warmup=1),
+          "library_ms": cuda_ms(library, iters=5, warmup=1)}
+    del pooled
+    pass1()
+    # pass 2 reads 16 bytes per point and per-cell tables: cycle through
+    # copies so that it reads them from device memory, not from the L2
+    bytes2 = b * n * 16 + b * (196 + 2 * 256) * 4
+    sets2 = [tuple(t.clone() for t in (cells, w, cmax, denom, big_s, s, d_w,
+                                       valid, idx))
+             for _ in range(copies_for(bytes2))]
+    t2 = {"ms": rotating_ms(pass2, sets2, iters=len(sets2)),
+          "plain_ms": rotating_ms(plain_pass2, sets2, iters=len(sets2)),
+          "library_ms": None}
+    del sets2
+    flops = 4.0 * int(valid.sum()) * d
+    t1["bound_ms"], t1["bound_by"] = bound(bwd_bytes(g, cells), flops,
+                                           torch.float32)
+    t2["bound_ms"], t2["bound_by"] = bound(
+        bytes2, 6.0 * b * n, torch.float32)
+    t1["both_passes_ms"] = cuda_ms(
+        lambda: grid_pool_bwd(g, cells, w, cmax, denom, cot), iters=10,
+        warmup=2)
+    for t in (t1, t2):
+        t["shape"] = label
+    print(f"  grid_pool_bwd1 {label}: kernel {t1['ms']:.4f} ms, plain (both "
+          f"passes) {t1['plain_ms']:.4f}, autograd of the index_add_ "
+          f"forward {t1['library_ms']:.4f}, bound {t1['bound_ms']:.4f} ms "
+          f"({t1['bound_by']}) [{dev_name}]")
+    print(f"  grid_pool_bwd2 {label}: kernel {t2['ms']:.5f} ms, plain "
+          f"{t2['plain_ms']:.5f}, bound {t2['bound_ms']:.5f} ms "
+          f"({t2['bound_by']}); both passes through the wrapper "
+          f"{t1['both_passes_ms']:.4f} ms [{dev_name}]")
+    return t1, t2
+
+
+def time_train_update(state, step, batch, dev_name):
+    """(e) ms per train update (host clock around synchronised updates, and
+    CUDA-event time on the stream) and the update's peak device memory."""
+    step(state, batch, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    host_ms, event_ms = [], []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        step(state, batch, seed=0)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    b, s = batch.steps.target.shape[1], batch.steps.target.shape[0]
+    res = {"batch": b, "steps": s, "host_ms": host_ms, "event_ms": event_ms,
+           "host_ms_median": float(np.median(host_ms)),
+           "event_ms_median": float(np.median(event_ms)),
+           "peak_device_bytes": peak, "held_before_bytes": held}
+    print(f"  train update, {b} trajectories x {s} steps, r2r_config() f32: "
+          f"host clock {[round(x, 1) for x in host_ms]} ms, CUDA events "
+          f"{[round(x, 1) for x in event_ms]} ms; peak device memory "
+          f"{peak / 2**30:.3f} GiB, of which {held / 2**30:.3f} GiB were "
+          f"held before the update (weights, AdamW moments, the batch and "
+          f"earlier phases' models) [{dev_name}]")
+    return res
+
+
 # ------------------------------------------------------- (e) encoder times
 def rotating_ms(fn, arg_sets, iters=30):
     """cuda_ms over calls that cycle through `arg_sets`, so that a kernel
@@ -947,6 +1355,7 @@ def main() -> int:
     check_pool_kernel(report)
     check_layernorm_kernel(report)
     check_attention_kernels(report)
+    check_pool_bwd_kernels(report)
 
     # (d) main paths
     print("(d) main path: serving engine, r2r_config() width")
@@ -957,6 +1366,10 @@ def main() -> int:
     ex = extractor_path(report)
     clip_model, pipe_cfg = pipeline_path(report)
     report["attention_fwd"]["launches"] = tiny_tower_path(report)
+    print("(d) main path: training, r2r_config() width")
+    train_state, train_step, train_batch, train_cfg = training_path(report)
+    report["tiny_update_cpu_vs_card_worst_grad_ratio"] = \
+        tiny_update_cpu_reference()
     for name in ("attention_qkv_fwd", "layernorm_fwd"):
         report[name]["launches"] = report["pipeline"]["launches"][name]
 
@@ -980,11 +1393,22 @@ def main() -> int:
             dev_name)
         del g, c, w
     timing.update(time_encoder_kernels(dev_name))
+    # the backward's main-path shape: the stacked buffer of a full batch
+    g, c, w = pool_case("random", train_batch.steps.target.shape[1],
+                        torch.float32, seed=6, n=TRAIN_STEPS * 588)
+    timing["grid_pool_bwd1"], timing["grid_pool_bwd2"] = time_pool_bwd(
+        g, c, w, f"B={g.shape[0]} N={g.shape[1]} D=768 f32 (5% invalid)",
+        dev_name)
+    del g, c, w
+    timing["train_update"] = time_train_update(train_state, train_step,
+                                               train_batch, dev_name)
     report["timing"] = timing
     for name, key in (("grid_pool_fwd", "main_path_B4_f32"),
                       ("layernorm_fwd", "layernorm_fwd"),
                       ("attention_qkv_fwd", "attention_qkv_fwd"),
-                      ("attention_fwd", "attention_fwd")):
+                      ("attention_fwd", "attention_fwd"),
+                      ("grid_pool_bwd1", "grid_pool_bwd1"),
+                      ("grid_pool_bwd2", "grid_pool_bwd2")):
         for field in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms"):
             report[name][field] = timing[key][field]

@@ -84,3 +84,32 @@ def load_flax_params(model: torch.nn.Module, params: Mapping
     with torch.no_grad():
         model.load_state_dict(sd, strict=True)
     return model
+
+
+def to_flax_tree(tensors: Mapping[str, torch.Tensor], template: Mapping
+                 ) -> Dict:
+    """The reverse of `flax_to_state_dict`, for gradients and updated
+    parameters: `tensors` maps torch parameter names to tensors (e.g.
+    `{n: p.grad for n, p in model.named_parameters()}`); the result has the
+    paths and layouts of the flax tree `template` ((in, out) kernels), as
+    nested dicts of numpy arrays. A tensor that is None comes back as zeros
+    (a parameter the loss did not reach)."""
+    if set(template) == {"params"}:
+        return {"params": to_flax_tree(tensors, template["params"])}
+    out: Dict = {}
+    for path, like in _flatten(template):
+        t = tensors[torch_name(path)]
+        if t is None:
+            arr = np.zeros(np.shape(like), np.float32)
+        else:
+            arr = t.detach().cpu().numpy()
+            if path[-1] == "kernel":
+                arr = arr.T
+        if tuple(arr.shape) != tuple(np.shape(like)):
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != "
+                             f"{tuple(np.shape(like))}")
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
+    return out

@@ -1,11 +1,14 @@
-"""ctypes wrapper of the grid-pool forward kernel (csrc/grid_pool_fwd.cu).
+"""ctypes wrappers of the grid-pool kernels (csrc/grid_pool_fwd.cu and
+csrc/grid_pool_bwd.cu).
 
-Replaces the TPU kernel `_pool_kernel`
+`GRID_POOL_FWD` replaces the TPU kernel `_pool_kernel`
 (gridmm_tpu/ops/pallas/grid_pool_kernel.py:30). The wrapper checks its
 inputs, computes the per-cell max with one scatter-max (outside the kernel,
 as `_prep_inputs` does around the Pallas body), allocates the zero-filled
-outputs and launches on the current stream. `GRID_POOL_FWD.launches` counts
-the launches.
+outputs and launches on the current stream. `GRID_POOL_BWD1` and
+`GRID_POOL_BWD2` replace `_pool_bwd1_kernel` (:164) and `_pool_bwd2_kernel`
+(:198), the two passes of the pool's backward. Each launcher's `launches`
+counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from gridmm_tpu_torch.ops.cuda import build
 
 CELL_PAD = 256
 SOURCE = "grid_pool_fwd"
+SOURCE_BWD = "grid_pool_bwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -41,38 +45,20 @@ class GridPoolFwd:
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         return self._fn
 
-    def __call__(self, point_fts, cell_ids, weights, num_cells: int = 196):
+    def __call__(self, point_fts, cell_ids, weights, num_cells: int = 196,
+                 cmax=None):
         """(B,N,D) f32|bf16 features, (B,N) int32 cells, (B,N) f32 weights
-        -> (numer (B, num_cells, D) f32, denom (B, 256) f32)."""
-        if point_fts.device.type != "cuda":
-            raise ValueError("grid_pool_fwd needs CUDA tensors, got "
-                             f"{point_fts.device}")
-        if point_fts.dim() != 3:
-            raise ValueError(f"point_fts must be (B,N,D), got "
-                             f"{tuple(point_fts.shape)}")
-        b, n, d = point_fts.shape
-        if point_fts.dtype not in _DTYPE_CODE:
-            raise TypeError(f"point_fts dtype {point_fts.dtype} not in "
-                            "(float32, bfloat16)")
-        if cell_ids.dtype != torch.int32 or weights.dtype != torch.float32:
-            raise TypeError("cell_ids must be int32 and weights float32, got "
-                            f"{cell_ids.dtype}, {weights.dtype}")
-        for name, t in (("cell_ids", cell_ids), ("weights", weights)):
-            if tuple(t.shape) != (b, n):
-                raise ValueError(f"{name} must be {(b, n)}, got "
-                                 f"{tuple(t.shape)}")
-            if t.device != point_fts.device:
-                raise ValueError(f"{name} on {t.device}, features on "
-                                 f"{point_fts.device}")
-        if not (point_fts.is_contiguous() and cell_ids.is_contiguous()
-                and weights.is_contiguous()):
-            raise ValueError("grid_pool_fwd needs contiguous inputs")
-        if not 1 <= num_cells <= CELL_PAD:
-            raise ValueError(f"num_cells must be in [1, {CELL_PAD}]")
+        -> (numer (B, num_cells, D) f32, denom (B, 256) f32). `cmax` is
+        `cell_max(cell_ids, weights, num_cells)` where the caller already
+        has it (the backward needs it again)."""
+        b, n, d = _check_points(self.name, point_fts, cell_ids, weights,
+                                num_cells)
         if b * n >= 2 ** 31 or n * d >= 2 ** 31:
             raise ValueError("grid_pool_fwd indexes rows with 32-bit ints")
 
-        cmax = cell_max(cell_ids, weights, num_cells)
+        if cmax is None:
+            cmax = cell_max(cell_ids, weights, num_cells)
+        _check_f32(self.name, point_fts.device, cmax=(cmax, (b, num_cells)))
         numer = torch.zeros((b, num_cells, d), dtype=torch.float32,
                             device=point_fts.device)
         denom = torch.zeros((b, CELL_PAD), dtype=torch.float32,
@@ -102,6 +88,120 @@ class GridPoolFwd:
             raise RuntimeError(f"grid_pool_fwd launch failed: cudaError {err}")
 
 
+def _check_points(name, point_fts, cell_ids, weights, num_cells):
+    """The checks every pool kernel shares; returns (B, N, D)."""
+    if point_fts.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {point_fts.device}")
+    if point_fts.dim() != 3:
+        raise ValueError(f"point_fts must be (B,N,D), got "
+                         f"{tuple(point_fts.shape)}")
+    b, n, d = point_fts.shape
+    if min(b, n, d) < 1:
+        raise ValueError(f"{name} needs a non-empty (B,N,D), got {(b, n, d)}")
+    if point_fts.dtype not in _DTYPE_CODE:
+        raise TypeError(f"point_fts dtype {point_fts.dtype} not in "
+                        "(float32, bfloat16)")
+    if cell_ids.dtype != torch.int32 or weights.dtype != torch.float32:
+        raise TypeError("cell_ids must be int32 and weights float32, got "
+                        f"{cell_ids.dtype}, {weights.dtype}")
+    for label, t in (("cell_ids", cell_ids), ("weights", weights)):
+        if tuple(t.shape) != (b, n):
+            raise ValueError(f"{label} must be {(b, n)}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != point_fts.device:
+            raise ValueError(f"{label} on {t.device}, features on "
+                             f"{point_fts.device}")
+    if not (point_fts.is_contiguous() and cell_ids.is_contiguous()
+            and weights.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous inputs")
+    if not 1 <= num_cells <= CELL_PAD:
+        raise ValueError(f"num_cells must be in [1, {CELL_PAD}]")
+    return b, n, d
+
+
+def _check_f32(name, device, **tensors):
+    """Each keyword is (tensor, shape): contiguous f32 on `device`."""
+    for label, (t, shape) in tensors.items():
+        if (t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
+                or t.device != device or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: {label} must be contiguous float32 {tuple(shape)} "
+                f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+class GridPoolBwd:
+    """One pass of the pool's backward, with its own launch count. The two
+    passes share csrc/grid_pool_bwd.cu and are driven by `grid_pool_bwd`."""
+
+    source = "gridmm_tpu_torch/csrc/grid_pool_bwd.cu"
+
+    def __init__(self, name, replaces, symbol, argtypes):
+        self.name = name
+        self.replaces = replaces
+        self.launches = 0
+        self._symbol = symbol
+        self._argtypes = argtypes
+        self._fn = None
+
+    def launch(self, device, *args):
+        """The bare launch on checked tensors; raises on a refused launch."""
+        if self._fn is None:
+            self._fn = build.function(SOURCE_BWD, self._symbol,
+                                      self._argtypes)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            err = self._fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed: cudaError {err}")
+        self.launches += 1
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+GRID_POOL_BWD1 = GridPoolBwd(
+    "grid_pool_bwd1", "gridmm_tpu/ops/pallas/grid_pool_kernel.py:164",
+    "gridmm_grid_pool_bwd1",
+    [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+GRID_POOL_BWD2 = GridPoolBwd(
+    "grid_pool_bwd2", "gridmm_tpu/ops/pallas/grid_pool_kernel.py:198",
+    "gridmm_grid_pool_bwd2", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+
+
+def grid_pool_bwd(point_fts, cell_ids, weights, cmax, denom, cot):
+    """Both passes of the pool's backward on the card.
+
+    (B,N,D) f32|bf16 features, (B,N) int32 cells, (B,N) f32 weights, the
+    forward's (B, num_cells) cell max and (B, 256) denominator, and the
+    (B, num_cells, D) f32 cotangent of the pooled cells ->
+    (d_fts (B,N,D) in the features' dtype, d_weights (B,N) f32,
+     s (B,N) f32, S (B,256) f32); s and S are the passes' intermediates.
+    """
+    if cot.dim() != 3:
+        raise ValueError(f"cot must be (B,C,D), got {tuple(cot.shape)}")
+    num_cells = cot.shape[1]
+    b, n, d = _check_points("grid_pool_bwd", point_fts, cell_ids, weights,
+                            num_cells)
+    dev = point_fts.device
+    _check_f32("grid_pool_bwd", dev, cmax=(cmax, (b, num_cells)),
+               denom=(denom, (b, CELL_PAD)), cot=(cot, (b, num_cells, d)))
+    d_fts = torch.empty_like(point_fts)
+    s = torch.empty((b, n), dtype=torch.float32, device=dev)
+    big_s = torch.zeros((b, CELL_PAD), dtype=torch.float32, device=dev)
+    d_w = torch.empty((b, n), dtype=torch.float32, device=dev)
+    # 8 warps a block, one point a warp at a time: enough blocks to keep
+    # every SM full, the rest of the points by grid stride
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    GRID_POOL_BWD1.launch(
+        dev, point_fts.data_ptr(), _DTYPE_CODE[point_fts.dtype],
+        cell_ids.data_ptr(), weights.data_ptr(), cmax.data_ptr(),
+        denom.data_ptr(), cot.data_ptr(), d_fts.data_ptr(), s.data_ptr(),
+        big_s.data_ptr(), b, n, d, num_cells, sms * 32)
+    GRID_POOL_BWD2.launch(
+        dev, cell_ids.data_ptr(), weights.data_ptr(), cmax.data_ptr(),
+        denom.data_ptr(), big_s.data_ptr(), s.data_ptr(), d_w.data_ptr(),
+        b, n, num_cells)
+    return d_fts, d_w, s, big_s
+
+
 def cell_max(cell_ids, weights, num_cells: int = 196):
     """(B, num_cells) per-cell max of the weights (-inf for empty cells) —
     the softmax stabilizer `_prep_inputs` computes outside the Pallas body."""
@@ -118,5 +218,6 @@ def cell_max(cell_ids, weights, num_cells: int = 196):
 GRID_POOL_FWD = GridPoolFwd()
 
 
-def grid_pool_fwd(point_fts, cell_ids, weights, num_cells: int = 196):
-    return GRID_POOL_FWD(point_fts, cell_ids, weights, num_cells)
+def grid_pool_fwd(point_fts, cell_ids, weights, num_cells: int = 196,
+                  cmax=None):
+    return GRID_POOL_FWD(point_fts, cell_ids, weights, num_cells, cmax)

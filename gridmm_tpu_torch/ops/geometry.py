@@ -310,3 +310,38 @@ def egocentric_grid_assignment(
     pos_fts = gridmap_pos_fts(half_len, cfg.grid_width, cfg.grid_height,
                               cfg.max_dist, convention=cfg.pos_fts_convention)
     return cells, half_len, pos_fts
+
+
+def stacked_point_state(
+    depth_raw: torch.Tensor,   # (S, B, V, P) per-step raw depth patches
+    features: torch.Tensor,    # (B, S*V*P, D) step-major point features
+    weights: torch.Tensor,     # (B, S*V*P) relevance logits
+    pos_xy: torch.Tensor,      # (S, B, 2) agent position per step
+    headings: torch.Tensor,    # (S, B)
+    cfg: GridConfig,
+) -> PointCloudState:
+    """Build the full-trajectory point buffer in one shot (stacked replay).
+
+    Step s's points occupy rows [s*V*P, (s+1)*V*P), the layout the
+    `append_panorama` chain produces from a fresh buffer, so a prefix of this
+    buffer (egocentric_grid_assignment's num_active) is bit-identical to the
+    step-s incremental state. Nothing is written in place: `features` and
+    `weights` stay in the autograd graph, and the backward pass keeps one
+    buffer instead of one per step (train/step.py).
+    """
+    s, b = depth_raw.shape[:2]
+    rel_x, rel_y, valid = backproject_panorama(depth_raw, cfg, headings)
+    xy = torch.stack([rel_x + pos_xy[..., 0:1], rel_y + pos_xy[..., 1:2]],
+                     dim=-1)                                # (S, B, VP, 2)
+    n = s * xy.shape[2]
+    xy = xy.permute(1, 0, 2, 3).reshape(b, n, 2)
+    valid = valid.permute(1, 0, 2).reshape(b, n)
+    dev = xy.device
+    return PointCloudState(
+        # the buffer dtype of PointCloudState.create/append_panorama, so
+        # training pools the same quantized features serving does
+        xy=xy, features=features.to(getattr(torch, cfg.feature_dtype)),
+        weights=weights.to(_F32), valid=valid,
+        inserted=torch.ones((b, n), dtype=torch.bool, device=dev),
+        count=torch.full((b,), n, dtype=torch.int32, device=dev),
+    )

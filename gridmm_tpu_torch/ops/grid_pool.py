@@ -8,9 +8,11 @@ Replaces the reference's O(B * 196 * N) python cell-pooling loop
     mask[b, c]   = any point landed in cell c                 (vilmodel.py:802-806)
 
 `grid_pool` dispatches by device: a CUDA tensor goes through the hand-written
-kernel (ops/cuda/grid_pool.py, csrc/grid_pool_fwd.cu), a CPU tensor through
-`grid_scatter_pool_raw`, the plain PyTorch version of the same contract and
-the kernel's oracle.
+kernels (ops/cuda/grid_pool.py; csrc/grid_pool_fwd.cu forward,
+csrc/grid_pool_bwd.cu backward), a CPU tensor through `grid_scatter_pool_raw`
+and `grid_pool_bwd_plain`, the plain PyTorch versions of the same contract
+and the kernels' oracles. Both devices go through one `GridPoolFunction`, so
+the pool is differentiable in `point_fts` and `weights` everywhere.
 """
 
 from __future__ import annotations
@@ -39,6 +41,12 @@ def instruction_relevance(
     return scores.amax(dim=-1)
 
 
+def _acc_dtype(point_fts):
+    """Sums are f32; f64 inputs (numerical gradient checks) stay f64."""
+    return (torch.float64 if point_fts.dtype == torch.float64
+            else torch.float32)
+
+
 def grid_scatter_pool_raw(
     point_fts: torch.Tensor,  # (B, N, D) f32 or bf16 projected features
     cell_ids: torch.Tensor,   # (B, N) int32 in [-1, num_cells); -1 invalid
@@ -50,22 +58,26 @@ def grid_scatter_pool_raw(
 
     Per point e_i = exp(w_i - cellmax[c_i]); numer[c] = sum e_i g_i and
     denom[c] = sum e_i over the cell; pooled = numer / denom, empty cells 0
-    with mask False. Ids outside [0, num_cells) vanish. Accumulates in f32.
+    with mask False. Ids outside [0, num_cells) vanish. Accumulates in f32
+    (f64 for f64 features).
     """
     b, n, d = point_fts.shape
     dev = point_fts.device
+    acc = _acc_dtype(point_fts)
     valid = (cell_ids >= 0) & (cell_ids < num_cells)
     seg = torch.where(valid, cell_ids, torch.full_like(cell_ids, num_cells)
                       ).long()
-    w = weights.float().masked_fill(~valid, float("-inf"))
-    cmax = torch.full((b, num_cells + 1), float("-inf"), device=dev
-                      ).scatter_reduce(1, seg, w, "amax")
+    w = weights.to(acc).masked_fill(~valid, float("-inf"))
+    cmax = torch.full((b, num_cells + 1), float("-inf"), dtype=acc,
+                      device=dev).scatter_reduce(1, seg, w, "amax")
     e = torch.exp(w - cmax.gather(1, seg)).masked_fill(~valid, 0.0)
 
-    denom = torch.zeros((b, CELL_PAD + 1), device=dev).scatter_add(1, seg, e)
+    denom = torch.zeros((b, CELL_PAD + 1), dtype=acc, device=dev
+                        ).scatter_add(1, seg, e)
     rows = (torch.arange(b, device=dev)[:, None] * (num_cells + 1) + seg)
-    numer = torch.zeros((b * (num_cells + 1), d), device=dev).index_add_(
-        0, rows.reshape(-1), (e[..., None] * point_fts.float()).reshape(-1, d))
+    numer = torch.zeros((b * (num_cells + 1), d), dtype=acc, device=dev
+                        ).index_add_(
+        0, rows.reshape(-1), (e[..., None] * point_fts.to(acc)).reshape(-1, d))
     numer = numer.view(b, num_cells + 1, d)[:, :num_cells]
     denom = denom[:, :CELL_PAD]
     return _finalize(numer, denom, num_cells)
@@ -88,15 +100,97 @@ def grid_scatter_pool(point_fts, cell_ids, weights, num_cells: int = 196):
     return pooled, cell_mask
 
 
-def grid_pool_raw(point_fts, cell_ids, weights, num_cells: int = 196):
-    """Dispatching pool: the CUDA kernel for tensors on the card, the plain
-    version for tensors on the CPU. Returns (pooled, cell_mask, denom)."""
-    if point_fts.device.type == "cpu":
-        return grid_scatter_pool_raw(point_fts, cell_ids, weights, num_cells)
-    from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_fwd
+def grid_pool_bwd_terms(point_fts, cell_ids, weights, denom_pad, cot):
+    """Plain PyTorch backward of the pool with its intermediates:
+    (d point_fts, d weights, s (B, N), S (B, 256)).
 
-    numer, denom = grid_pool_fwd(point_fts, cell_ids, weights, num_cells)
-    return _finalize(numer, denom, num_cells)
+    With G = `cot` (B, C, D), the cotangent of the pooled cells, and the
+    in-cell softmax p_i = exp(w_i - cellmax[c_i]) / denom[c_i] (0 for ids
+    outside [0, C) and for empty cells, where s_i is 0 too):
+        dg_i = p_i G[c_i],  s_i = <g_i, G[c_i]>,  S_c = sum_{j in c} p_j s_j,
+        dw_i = p_i (s_i - S[c_i])
+    (gridmm_tpu/ops/pallas/grid_pool_kernel.py:154-161). `denom_pad` is the
+    forward's (B, 256) denominator. d point_fts comes back in the features'
+    dtype, the rest in f32; sums are f32. A one-point cell has dw = 0.
+    """
+    b, n, d = point_fts.shape
+    num_cells = cot.shape[1]
+    acc = _acc_dtype(point_fts)
+    valid = (cell_ids >= 0) & (cell_ids < num_cells)
+    idx = torch.where(valid, cell_ids, torch.zeros_like(cell_ids)).long()
+    w = weights.to(acc).masked_fill(~valid, float("-inf"))
+    cmax = torch.full((b, num_cells), float("-inf"), dtype=acc,
+                      device=w.device).scatter_reduce(1, idx, w, "amax")
+    den = denom_pad[:, :num_cells].to(acc).gather(1, idx)
+    live = valid & (den > 0)
+    p = torch.exp(w - cmax.gather(1, idx)) / torch.where(
+        live, den, torch.ones_like(den))
+    p = p.masked_fill(~live, 0.0)
+
+    rows = cot.to(acc).gather(1, idx[..., None].expand(b, n, d))  # G[c_i]
+    d_fts = (p[..., None] * rows).to(point_fts.dtype)
+    s = (point_fts.to(acc) * rows).sum(dim=-1).masked_fill(~live, 0.0)
+    big_s = torch.zeros((b, CELL_PAD), dtype=acc, device=w.device
+                        ).scatter_add(1, idx, p * s)
+    d_w = p * (s - big_s.gather(1, idx))
+    return d_fts, d_w, s, big_s
+
+
+def grid_pool_bwd_plain(point_fts, cell_ids, weights, denom_pad, cot):
+    """Plain PyTorch backward of the pool: (d point_fts, d weights); see
+    `grid_pool_bwd_terms`. The backward kernels' oracle and the CPU path."""
+    return grid_pool_bwd_terms(point_fts, cell_ids, weights, denom_pad,
+                               cot)[:2]
+
+
+class GridPoolFunction(torch.autograd.Function):
+    """The dispatching pool with its analytic backward.
+
+    forward: the CUDA forward kernel for tensors on the card, the plain
+    version for tensors on the CPU; returns (pooled, cell_mask, denom), of
+    which only `pooled` is differentiable. backward: the two CUDA backward
+    kernels on the card, `grid_pool_bwd_plain` on the CPU. `cell_ids` gets
+    no gradient. Neither side gives way to the other when a kernel fails.
+    """
+
+    @staticmethod
+    def forward(ctx, point_fts, cell_ids, weights, num_cells):
+        cmax = None
+        if point_fts.device.type == "cpu":
+            pooled, cell_mask, denom = grid_scatter_pool_raw(
+                point_fts, cell_ids, weights, num_cells)
+        else:
+            from gridmm_tpu_torch.ops.cuda.grid_pool import (cell_max,
+                                                             grid_pool_fwd)
+
+            cmax = cell_max(cell_ids, weights, num_cells)
+            numer, denom = grid_pool_fwd(point_fts, cell_ids, weights,
+                                         num_cells, cmax)
+            pooled, cell_mask, denom = _finalize(numer, denom, num_cells)
+        ctx.save_for_backward(point_fts, cell_ids, weights, denom, cmax)
+        ctx.mark_non_differentiable(cell_mask, denom)
+        return pooled, cell_mask, denom
+
+    @staticmethod
+    def backward(ctx, cot, _cell_mask_cot, _denom_cot):
+        point_fts, cell_ids, weights, denom, cmax = ctx.saved_tensors
+        if point_fts.device.type == "cpu":
+            d_fts, d_w = grid_pool_bwd_plain(point_fts, cell_ids, weights,
+                                             denom, cot)
+        else:
+            from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_bwd
+
+            d_fts, d_w, _, _ = grid_pool_bwd(
+                point_fts, cell_ids, weights, cmax, denom,
+                cot.float().contiguous())
+        return d_fts, None, d_w.to(weights.dtype), None
+
+
+def grid_pool_raw(point_fts, cell_ids, weights, num_cells: int = 196):
+    """Dispatching, differentiable pool: the CUDA kernels for tensors on the
+    card, the plain versions for tensors on the CPU. Returns (pooled,
+    cell_mask, denom)."""
+    return GridPoolFunction.apply(point_fts, cell_ids, weights, num_cells)
 
 
 def grid_pool(point_fts, cell_ids, weights, num_cells: int = 196):

@@ -1,4 +1,4 @@
-"""The per-step navigation graph, inference half (twin of the rollout part of
+"""The per-step navigation graph and the training steps built on it (twin of
 gridmm_tpu/train/step.py).
 
 One call of `nav_device_step` is one action for a batch of episodes:
@@ -6,21 +6,36 @@ panorama encode, project + score the 588 new grid points, append them to the
 on-device point buffer, egocentric cell assignment over the whole buffer,
 graph-node embedding aggregation, navigation forward. Host work is limited to
 assembling the `StepInputs` index maps.
+
+Teacher-forced training needs no model-in-the-loop decisions, so the whole
+trajectory loss (language encode, per-step panorama encode, point buffer +
+grid assignment, node aggregation, navigation forward, CE) is one autograd
+graph over a recorded `TrajectoryBatch`, with one backward. Gradient flow
+matches the reference: the navigation loss reaches the panorama encoder
+through both the vp tokens and the gmap node embeddings (agent.py:312-320,
+vilmodel.py:592-626). `make_train_step` / `make_dagger_step` wrap it with the
+clipped AdamW update.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import contextlib
+import dataclasses
+from typing import Dict, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from gridmm_tpu_torch.config import GridMMConfig
 from gridmm_tpu_torch.models.navigator import GridMMNavigator, NavOutputs
 from gridmm_tpu_torch.ops import geometry as G
+from gridmm_tpu_torch.train.losses import cross_entropy_ignore
+from gridmm_tpu_torch.train.optimizers import ChainOptimizer
 
 
 class StepInputs(NamedTuple):
-    """Per-step tensors for a batch of B episodes (leading dim B)."""
+    """Per-step tensors for a batch of B episodes: leading dim B for one
+    step, (S, B, ...) when stacked into a TrajectoryBatch."""
 
     # panorama tokens (V-1 view/object tokens; stop slot added here)
     view_img_fts: torch.Tensor   # (B, V-1, D_img)
@@ -45,12 +60,54 @@ class StepInputs(NamedTuple):
     # fusion index maps
     fused_add_idx: torch.Tensor        # (B, G)
     cand_backtrack_mask: torch.Tensor  # (B, V)
-    # supervision (unused by the inference step; kept for field parity)
-    target: torch.Tensor         # (B,)
-    grid_target: torch.Tensor    # (B,)
+    # supervision, read by the trajectory loss only
+    target: torch.Tensor         # (B,) fused-action label, ignore_id when done
+    grid_target: torch.Tensor    # (B,) grid-cell label (0 stop) or ignore_id
     # object grounding (REVERIE/SOON; zero-filled otherwise)
     vp_obj_mask: torch.Tensor    # (B, V) bool
-    obj_target: torch.Tensor     # (B,)
+    obj_target: torch.Tensor     # (B,) object token index or ignore_id
+
+
+class TrajectoryBatch(NamedTuple):
+    txt_ids: torch.Tensor   # (B, T)
+    txt_mask: torch.Tensor  # (B, T) bool
+    steps: StepInputs       # each field (S, B, ...)
+
+
+def batch_to_device(batch: TrajectoryBatch, device,
+                    non_blocking: bool = False) -> TrajectoryBatch:
+    """A TrajectoryBatch of numpy arrays or tensors as tensors on `device`."""
+    def put(a):
+        return torch.as_tensor(a).to(device, non_blocking=non_blocking)
+
+    return TrajectoryBatch(put(batch.txt_ids), put(batch.txt_mask),
+                           StepInputs(*(put(a) for a in batch.steps)))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a train step updates in place: the module, its optimizer and the
+    number of updates made (the JAX package's (params, opt_state, step))."""
+
+    model: GridMMNavigator
+    optimizer: ChainOptimizer
+    step: int = 0
+
+
+def make_optimizer(cfg: GridMMConfig, model: GridMMNavigator
+                   ) -> ChainOptimizer:
+    """AdamW on every parameter + global-norm clip 40
+    (agent_base.py:122-138,205)."""
+    return ChainOptimizer(
+        model.parameters(), "adamw", lr=cfg.train.lr,
+        clip=cfg.train.grad_norm_clip, betas=tuple(cfg.train.betas),
+        eps=cfg.train.adam_eps, weight_decay=cfg.train.weight_decay)
+
+
+def create_train_state(cfg: GridMMConfig, model: GridMMNavigator,
+                       optimizer: Optional[ChainOptimizer] = None
+                       ) -> TrainState:
+    return TrainState(model, optimizer or make_optimizer(cfg, model), 0)
 
 
 class NavCarry(NamedTuple):
@@ -90,6 +147,8 @@ def _update_node_embeds(gmap_sum, gmap_cnt, pano_embeds, pano_mask,
     avg = (pano_embeds * pano_mask[..., None]).sum(dim=1) / torch.clamp(
         pano_mask.sum(dim=1, keepdim=True), min=1)
 
+    # one copy, then in place: earlier steps' sums stay intact, and autograd
+    # follows the writes on the copy into pano_embeds
     gmap_sum = gmap_sum.clone()
     gmap_cnt = gmap_cnt.clone()
     cur = cur_node_idx.long()
@@ -111,7 +170,8 @@ def _update_node_embeds(gmap_sum, gmap_cnt, pano_embeds, pano_mask,
     rows = bi[:, None].expand_as(tgt)
     # repeated slots add up, like JAX's .at[].add
     gmap_sum.index_put_((rows, tgt), contrib, accumulate=True)
-    gmap_cnt.index_put_((rows, tgt), valid.float(), accumulate=True)
+    gmap_cnt.index_put_((rows, tgt), valid.to(gmap_cnt.dtype),
+                        accumulate=True)
     return gmap_sum, gmap_cnt
 
 
@@ -152,7 +212,8 @@ def nav_device_step(model: GridMMNavigator, cfg: GridMMConfig, txt_embeds,
     Gmap tokens use a stable discovery-order slot space (slot 0 = [stop]);
     attention is permutation-equivariant under masks, so this equals the
     reference's per-step repacking (agent.py:104-147). The point buffer in
-    `carry` is written in place (geometry.append_panorama)."""
+    `carry` is written in place (geometry.append_panorama), except under
+    autograd, where each step appends into a copy."""
     pano_embeds, pano_mask = model("panorama", {
         "view_img_fts": x.view_img_fts, "loc_fts": x.loc_fts,
         "nav_types": x.nav_types, "view_mask": x.view_mask})
@@ -163,7 +224,13 @@ def nav_device_step(model: GridMMNavigator, cfg: GridMMConfig, txt_embeds,
         "txt_embeds": txt_embeds, "patch_fts": x.patch_fts,
         "txt_relevance_mask":
             txt_mask if cfg.model.mask_txt_relevance else None})
-    point_state = G.append_panorama(carry.point_state, x.depth, proj_new,
+    point_state = carry.point_state
+    if torch.is_grad_enabled() and proj_new.requires_grad:
+        # the backward pass (and a recomputed step) needs this step's
+        # buffer as it was: append into a copy, so that the next step's
+        # write leaves it intact
+        point_state = G.PointCloudState(*(t.clone() for t in point_state))
+    point_state = G.append_panorama(point_state, x.depth, proj_new,
                                     x.pos_xy, cfg.grid, w_new,
                                     headings=x.heading)
     cells, _, grid_pos_fts = G.egocentric_grid_assignment(
@@ -180,3 +247,223 @@ def nav_device_step(model: GridMMNavigator, cfg: GridMMConfig, txt_embeds,
         cfg, txt_embeds, txt_mask, gmap_img_embeds, x, pano_embeds,
         point_state.features, cells, point_state.weights, grid_pos_fts))
     return NavCarry(point_state, gmap_sum, gmap_cnt), out
+
+
+def _loss_head_logits(cfg, out: NavOutputs, x: StepInputs):
+    """Select the training head. 'ce' is the continuous-env action head
+    (gridmm_tpu/ce/device_step.py ce_action_logits), which the port does not
+    have yet."""
+    if cfg.train.loss_head == "ce":
+        raise NotImplementedError(
+            "loss_head='ce' needs ce/device_step.py, which is not ported "
+            "(ROADMAP Queue 1 item 13)")
+    return getattr(out, f"{cfg.train.loss_head}_logits")
+
+
+def _step_loss(cfg, out: NavOutputs, x: StepInputs):
+    """Summed CE of one step: the action head, RxR's doubled stop CE
+    (rxr/agent.py:367-373) and the object-grounding CE (REVERIE
+    agent_obj.py og_loss)."""
+    ignore = cfg.train.ignoreid
+    head_logits = _loss_head_logits(cfg, out, x)
+    loss = cross_entropy_ignore(head_logits, x.target, ignore, "sum")
+    if cfg.train.stop_extra_ce:
+        stop_only = torch.where(x.target == 0, torch.zeros_like(x.target),
+                                torch.full_like(x.target, ignore))
+        loss = loss + cross_entropy_ignore(head_logits, stop_only, ignore,
+                                           "sum")
+    if out.obj_logits is not None:
+        loss = loss + cross_entropy_ignore(out.obj_logits, x.obj_target,
+                                           ignore, "sum")
+    return loss
+
+
+def _check_capacity(cfg, s: int) -> None:
+    ppstep = cfg.grid.points_per_step
+    if s * ppstep > cfg.shapes.max_points:
+        raise ValueError(
+            f"point buffer overflow: {s} steps x {ppstep} points/step "
+            f"exceeds max_points={cfg.shapes.max_points}")
+
+
+def _trajectory_loss_stacked(model: GridMMNavigator, cfg: GridMMConfig,
+                             batch: TrajectoryBatch,
+                             ml_weight: Optional[float] = None):
+    """Teacher-forced loss with one shared full-trajectory point buffer.
+
+    Replay knows the whole trajectory up front, so all steps' patches are
+    projected and scored in one call, all panoramas encoded in one batched
+    call, and one buffer (geometry.stacked_point_state), of which a prefix
+    is bit-identical to every step's incremental buffer, is step-masked via
+    egocentric_grid_assignment(num_active=...). Autograd then keeps one
+    buffer, not one per step; the pool's backward adds every step's
+    gradient into it. Same loss as the incremental `trajectory_loss`.
+    """
+    x = batch.steps
+    s, b = x.target.shape
+    ppstep = cfg.grid.points_per_step
+    _check_capacity(cfg, s)
+    relevance_mask = batch.txt_mask if cfg.model.mask_txt_relevance else None
+
+    txt_embeds = model("language", {"txt_ids": batch.txt_ids,
+                                    "txt_mask": batch.txt_mask})
+
+    def fold(a):  # (S, B, ...) -> (S*B, ...)
+        return a.reshape((s * b,) + a.shape[2:])
+
+    pano_embeds, pano_mask = model("panorama", {
+        "view_img_fts": fold(x.view_img_fts), "loc_fts": fold(x.loc_fts),
+        "nav_types": fold(x.nav_types), "view_mask": fold(x.view_mask)})
+    pano_embeds = pano_embeds.reshape((s, b) + pano_embeds.shape[1:])
+    pano_mask = pano_mask.reshape((s, b) + pano_mask.shape[1:])
+
+    # step-major point layout: step t's points at rows [t*ppstep, (t+1)*ppstep)
+    patch_all = x.patch_fts.permute(1, 0, 2, 3).reshape(
+        b, s * ppstep, x.patch_fts.shape[-1])
+    proj_all, w_all = model("project_grid", {
+        "txt_embeds": txt_embeds, "patch_fts": patch_all,
+        "txt_relevance_mask": relevance_mask})
+    stacked = G.stacked_point_state(x.depth, proj_all, w_all, x.pos_xy,
+                                    x.heading, cfg.grid)
+
+    g = x.gmap_mask.shape[-1]
+    dev = x.target.device
+    gsum = torch.zeros((b, g, cfg.model.hidden_size), dtype=torch.float32,
+                       device=dev)
+    gcnt = torch.zeros((b, g), dtype=torch.float32, device=dev)
+
+    def nav_step(x_t, gmap_emb_t, pano_t, num_active):
+        cells, _, grid_pos_fts = G.egocentric_grid_assignment(
+            stacked, x_t.pos_xy, x_t.heading, cfg.grid,
+            num_active=num_active)
+        out = model("navigation", _nav_inputs(
+            cfg, txt_embeds, batch.txt_mask, gmap_emb_t, x_t, pano_t,
+            stacked.features, cells, stacked.weights, grid_pos_fts))
+        return _step_loss(cfg, out, x_t)
+
+    remat = cfg.train.remat_steps
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for t in range(s):
+        x_t = StepInputs(*(a[t] for a in x))
+        gsum, gcnt = _update_node_embeds(
+            gsum, gcnt, pano_embeds[t].float(), pano_mask[t],
+            x_t.cur_node_idx, x_t.cand_gmap_idx, x_t.gmap_visited_mask,
+            accumulate=cfg.model.frontier_accumulate)
+        emb = gsum / torch.clamp(gcnt, min=1.0)[..., None]
+        # slot 0 is [stop]: zero embedding (agent.py:127-129)
+        emb = torch.cat([torch.zeros_like(emb[:, :1]), emb[:, 1:]], dim=1)
+        args = (x_t, emb, pano_embeds[t], (t + 1) * ppstep)
+        if remat and torch.is_grad_enabled():
+            # recompute the step's activations in the backward pass; the
+            # saved RNG state replays the same dropout masks
+            total = total + checkpoint(nav_step, *args, use_reentrant=False)
+        else:
+            total = total + nav_step(*args)
+    return _scale_trajectory_loss(cfg, batch, total, b, ml_weight)
+
+
+def trajectory_loss(model: GridMMNavigator, cfg: GridMMConfig,
+                    batch: TrajectoryBatch,
+                    ml_weight: Optional[float] = None):
+    """Teacher-forced loss over a full episode batch, all on the device.
+
+    cfg.train.stacked_replay=True (default) uses the stacked formulation
+    above; False keeps the incremental point buffer, the graph the
+    interactive rollout uses. Dropout follows `model.training`; each step
+    draws fresh masks from torch's generator."""
+    if cfg.train.stacked_replay:
+        return _trajectory_loss_stacked(model, cfg, batch, ml_weight)
+    s, b = batch.steps.target.shape
+    _check_capacity(cfg, s)
+    txt_embeds = model("language", {"txt_ids": batch.txt_ids,
+                                    "txt_mask": batch.txt_mask})
+    dev = batch.steps.target.device
+    carry = init_carry(cfg, b, batch.steps.gmap_mask.shape[-1], device=dev)
+
+    def device_step(carry, x_t):
+        carry, out = nav_device_step(model, cfg, txt_embeds, batch.txt_mask,
+                                     carry, x_t)
+        return carry, _step_loss(cfg, out, x_t)
+
+    remat = cfg.train.remat_steps
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for t in range(s):
+        x_t = StepInputs(*(a[t] for a in batch.steps))
+        if remat and torch.is_grad_enabled():
+            carry, step_loss = checkpoint(device_step, carry, x_t,
+                                          use_reentrant=False)
+        else:
+            carry, step_loss = device_step(carry, x_t)
+        total = total + step_loss
+    return _scale_trajectory_loss(cfg, batch, total, b, ml_weight)
+
+
+def _scale_trajectory_loss(cfg, batch, total, b, ml_weight):
+    """Discrete fine-tune scales by ml_weight / batch_size (agent.py:447; the
+    DAgger student-sampled pass uses weight 1.0, agent_base.py:164-196).
+    VLN-CE (cfg.train.loss_norm='actions') divides by the number of
+    non-ignored targets instead, with no ml_weight factor
+    (ss_trainer_GridMap.py:284,493)."""
+    if cfg.train.loss_norm == "actions":
+        denom = torch.clamp(
+            (batch.steps.target != cfg.train.ignoreid).sum(), min=1)
+        return total / denom
+    w = cfg.train.ml_weight if ml_weight is None else ml_weight
+    return total * w / b
+
+
+@contextlib.contextmanager
+def _seeded(seed: int, step: int, device):
+    """A forked RNG scope seeded from (seed, step): dropout masks depend on
+    both, and the caller's generators are left as they were."""
+    devices = [device] if torch.device(device).type == "cuda" else []
+    with torch.random.fork_rng(devices=devices):
+        torch.manual_seed((int(seed) * 1000003 + int(step)) % (2 ** 63))
+        yield
+
+
+def make_train_step(cfg: GridMMConfig):
+    """train_step(state, batch, seed) -> metrics: one teacher-forced loss,
+    one backward, one clipped optimizer update of `state.model` in place.
+    Dropout is on iff `state.model.training`; `seed` and the step count seed
+    its masks."""
+
+    def train_step(state: TrainState, batch: TrajectoryBatch,
+                   seed: int = 0) -> Dict[str, torch.Tensor]:
+        state.optimizer.zero_grad(set_to_none=True)
+        with _seeded(seed, state.step, batch.txt_ids.device):
+            loss = trajectory_loss(state.model, cfg, batch)
+            loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return {"loss": loss.detach(),
+                "grad_norm": state.optimizer.last_grad_norm}
+
+    return train_step
+
+
+def make_dagger_step(cfg: GridMMConfig):
+    """Reference DAgger gradient shape (agent_base.py:164-196): per
+    iteration the teacher-forced loss (weight ml_weight) and the
+    student-sampled-replay loss (weight 1.0) are summed into one optimizer
+    step, not alternated. Each loss is backpropagated as soon as it is
+    formed (the gradients add up), so only one graph is alive at a time."""
+
+    def train_step(state: TrainState, teacher_batch: TrajectoryBatch,
+                   sample_batch: TrajectoryBatch,
+                   seed: int = 0) -> Dict[str, torch.Tensor]:
+        state.optimizer.zero_grad(set_to_none=True)
+        with _seeded(seed, state.step, teacher_batch.txt_ids.device):
+            lt = trajectory_loss(state.model, cfg, teacher_batch)
+            lt.backward()
+            lt = lt.detach()
+            ls = trajectory_loss(state.model, cfg, sample_batch,
+                                 ml_weight=1.0)
+            ls.backward()
+            ls = ls.detach()
+        state.optimizer.step()
+        state.step += 1
+        return {"loss": lt + ls, "loss_teacher": lt, "loss_sample": ls,
+                "grad_norm": state.optimizer.last_grad_norm}
+
+    return train_step

@@ -1,16 +1,105 @@
-"""Checkpoint import (twin of part of gridmm_tpu/utils/checkpoint.py).
+"""Checkpoint persistence and import (twin of part of
+gridmm_tpu/utils/checkpoint.py).
 
-Only the OpenAI CLIP visual tower is ported so far; the navigator's released
-key spaces, timm's ViT and the saver are later slices.
+`save_checkpoint` / `AsyncSaver` / `restore_checkpoint` stand in for the JAX
+package's orbax calls, with `torch.save` files written to a temporary name
+and renamed into place. Of the importers only the OpenAI CLIP visual tower
+is ported so far; the navigator's released key spaces and timm's ViT are
+later slices.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import os
+import threading
+from typing import Any, Dict, Optional
 
 import torch
 
 from gridmm_tpu_torch.models.clip_vit import ClipVisionTransformer
+
+
+def _host_copy(tree):
+    """Tensors of a nested dict/list/tuple copied to host memory; anything
+    else as it is."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
+def _write(path: str, host_state) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    torch.save(host_state, tmp)
+    os.replace(tmp, path)       # a reader never sees a half-written file
+
+
+def save_checkpoint(path: str, state) -> None:
+    """Write `state` (a state_dict, or any nested dict/list of tensors and
+    plain values) to the file `path`, atomically."""
+    _write(path, _host_copy(state))
+
+
+class AsyncSaver:
+    """Background checkpoint writes overlapping training compute.
+
+    save() copies the tensors to host memory before it returns, so the
+    caller may update them in place at once, and serializes and writes in a
+    background thread that renames the file into place (the reference's
+    torch.save blocks the step loop, agent_base.py:213-228). One write is
+    outstanding at a time. wait() makes the last save durable and raises
+    what the writer raised; close() at shutdown. The files are read by
+    `restore_checkpoint`.
+    """
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, path: str, state) -> None:
+        self.wait()
+        host_state = _host_copy(state)
+
+        def run():
+            try:
+                _write(path, host_state)
+            except Exception as e:   # raised in the caller by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=False)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def close(self) -> None:
+        self.wait()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def restore_checkpoint(path: str, model: Optional[torch.nn.Module] = None):
+    """Read a checkpoint file onto the host. With `model`, load it as that
+    module's state_dict (strict) and return the module; else return the
+    stored tree."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if model is None:
+        return state
+    model.load_state_dict(state, strict=True)
+    return model
 
 
 def _strip_prefixes(state_dict: Dict[str, Any]) -> Dict[str, Any]:

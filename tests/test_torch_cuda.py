@@ -89,6 +89,111 @@ def test_grid_pool_kernel_counts_launches_and_rejects_bad_input():
     assert GRID_POOL_FWD.launches == before + 1
 
 
+# ------------------------------------------------ K5a/K5b pool backward
+def _bwd_case(kind, dtype, b, n, seed=0):
+    """pool_case at (b, n) with a cotangent and the forward's residuals."""
+    from gridmm_tpu_torch.ops.cuda.grid_pool import cell_max
+
+    g, cells, w = pool_case(kind, dtype, seed)
+    g, cells, w = (g[:b, :n].contiguous(), cells[:b, :n].contiguous(),
+                   w[:b, :n].contiguous())
+    rng = np.random.default_rng(seed + 1)
+    cot = torch.from_numpy(rng.standard_normal((b, 196, g.shape[-1])).astype(
+        np.float32)).cuda()
+    _, _, denom = grid_scatter_pool_raw(g, cells, w)
+    return g, cells, w, cell_max(cells, w), denom.contiguous(), cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "edges"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n", [(4, 8820), (8, 8832)])
+def test_grid_pool_bwd_kernels_match_plain(kind, dtype, b, n):
+    """dg within 1e-5 x max|dg| (f32: one product each side) or one bf16 ulp
+    of its magnitude (bf16: both round the same f32 product); s within 1e-5
+    and S, dw within 1e-4 of their max (S adds with f32 atomics in a varying
+    order). N = 8820 is the stacked buffer's length, not a multiple of 512."""
+    _require_card()
+    from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
+                                                     GRID_POOL_BWD2,
+                                                     grid_pool_bwd)
+    from gridmm_tpu_torch.ops.grid_pool import grid_pool_bwd_terms
+
+    g, cells, w, cmax, denom, cot = _bwd_case(kind, getattr(torch, dtype),
+                                              b, n)
+    before = (GRID_POOL_BWD1.launches, GRID_POOL_BWD2.launches)
+    got = grid_pool_bwd(g, cells, w, cmax, denom, cot)
+    want = grid_pool_bwd_terms(g, cells, w, denom, cot)
+    torch.cuda.synchronize()
+    assert (GRID_POOL_BWD1.launches, GRID_POOL_BWD2.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got[0].dtype == g.dtype and got[1].dtype == torch.float32
+    dg, want_dg = got[0].float(), want[0].float()
+    if dtype == "float32":
+        torch.testing.assert_close(dg, want_dg, rtol=0,
+                                   atol=1e-5 * want_dg.abs().max().item())
+    else:
+        torch.testing.assert_close(dg, want_dg, rtol=2.0 ** -7, atol=1e-30)
+    for name, a, ref, tol in (("dw", got[1], want[1], 1e-4),
+                              ("s", got[2], want[2], 1e-5),
+                              ("S", got[3], want[3], 1e-4)):
+        torch.testing.assert_close(a, ref, rtol=0,
+                                   atol=tol * ref.abs().max().item(),
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    if kind == "edges":
+        assert (dg[1] == 0).all() and (got[1][1] == 0).all()
+        assert got[1][2, 100].abs().item() <= 1e-6   # one-point cell
+        invalid = cells < 0
+        assert (dg[invalid] == 0).all() and (got[1][invalid] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 30])
+def test_grid_pool_function_on_card_matches_cpu(d):
+    """The autograd pool on the card (three kernels) against the same on the
+    CPU (plain versions), tiny widths: D = 64 takes the vector path, D = 30
+    the scalar one. Gradients within 1e-5 of their max."""
+    _require_card()
+    from gridmm_tpu_torch.ops.grid_pool import grid_pool
+
+    rng = np.random.default_rng(3)
+    b, n = 2, 1000
+    g = torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32))
+    cells = torch.from_numpy(rng.integers(-1, 196, size=(b, n)
+                                          ).astype(np.int32))
+    w = torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((b, 196, d)
+                                               ).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        gd = g.detach().to(dev, copy=True).requires_grad_()
+        wd = w.detach().to(dev, copy=True).requires_grad_()
+        pooled, _ = grid_pool(gd, cells.to(dev), wd)
+        pooled.backward(cot.to(dev))
+        grads[dev] = (gd.grad.cpu(), wd.grad.cpu())
+    for a, ref in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, ref, rtol=0,
+                                   atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_grid_pool_bwd_rejects_bad_input():
+    _require_card()
+    from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
+                                                     grid_pool_bwd)
+
+    g, cells, w, cmax, denom, cot = _bwd_case("random", torch.float32, 2,
+                                              1000)
+    before = GRID_POOL_BWD1.launches
+    with pytest.raises(ValueError):
+        grid_pool_bwd(g, cells, w, cmax, denom[:, :196].contiguous(), cot)
+    with pytest.raises(ValueError):
+        grid_pool_bwd(g, cells, w, cmax, denom, cot.double())
+    with pytest.raises(ValueError):
+        grid_pool_bwd(g.cpu(), cells, w, cmax, denom, cot)
+    assert GRID_POOL_BWD1.launches == before
+
+
 # ------------------------------------------------------------ K3 layernorm
 def _ln_case(rows, c, dtype, seed=0):
     rng = np.random.default_rng(seed)

@@ -21,6 +21,11 @@ import torch  # noqa: E402
 import gridmm_tpu.config as JC  # noqa: E402
 import gridmm_tpu_torch.config as TC  # noqa: E402
 
+# The parity tests run tiny shapes in several pytest workers at once: more
+# than one intra-op thread per worker only makes them wait on each other
+# (the training tests run four times longer with the default pool).
+torch.set_num_threads(1)
+
 # the fields the port drops: it dispatches by device instead
 DROPPED_MODEL_FIELDS = {"use_pallas_attention", "use_pallas_grid_pool"}
 
