@@ -11,9 +11,10 @@ On a CUDA tensor a kernel always runs, chosen as the JAX package chooses:
 head_dim 64 goes to the packed-qkv kernel (csrc/attention_qkv_fwd.cu, the
 only head_dim `fused_attention_qkv` takes), every other head_dim is split
 into (B*H, L, hd) and goes to the per-head kernel (csrc/attention_fwd.cu).
-Both kernels keep scores and softmax in f32 on chip, so `scores_f32` (the
-JAX `attn_scores_f32` knob, which trades score precision for bytes moved)
-only changes the plain version.
+The packed-qkv kernel runs bf16 inputs on the tensor cores (bf16 products,
+f32 accumulators) and f32 inputs on the CUDA cores. Both kernels keep scores
+and softmax in f32 on chip, so `scores_f32` (the JAX `attn_scores_f32` knob,
+which trades score precision for bytes moved) only changes the plain version.
 """
 
 from __future__ import annotations

@@ -8,9 +8,11 @@
     {16, 32, 64, 128}.
 
 Both keep K and V of one head in shared memory, so L is capped by the
-232,448 bytes a block may use (2 * L * hd * itemsize); the wrappers raise
-above it and on anything else the kernels do not take. Each counts its
-launches in `.launches`.
+232,448 bytes a block may use: 2 * L * hd * itemsize, and for bf16 packed
+qkv, which runs on the tensor cores (csrc/attention_qkv_mma.cuh), a 64-row
+Q tile besides K and V, keys padded to a multiple of 16 and rows to 144
+bytes. The wrappers raise above it and on anything else the kernels do not
+take. Each counts its launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -46,8 +48,11 @@ def _check_common(name, tensors):
     return _DTYPE_CODE[t0.dtype]
 
 
-def _check_len(name, length, hd, dtype):
-    smem = 2 * length * hd * torch.tensor([], dtype=dtype).element_size()
+def _check_len(name, length, hd, dtype, packed=False):
+    if packed and dtype == torch.bfloat16:
+        smem = (2 * (-(-length // 16) * 16) + 64) * (QKV_HEAD_DIM + 8) * 2
+    else:
+        smem = 2 * length * hd * torch.tensor([], dtype=dtype).element_size()
     if smem > MAX_SMEM:
         raise ValueError(f"{name}: L={length} at head_dim {hd} needs {smem} "
                          f"bytes of shared memory, more than {MAX_SMEM}")
@@ -83,7 +88,7 @@ class AttentionQkvFwd:
         if heads < 1 or width != heads * QKV_HEAD_DIM:
             raise ValueError(f"{self.name} needs head_dim {QKV_HEAD_DIM}, got "
                              f"width {width} over {heads} heads")
-        _check_len(self.name, length, QKV_HEAD_DIM, qkv.dtype)
+        _check_len(self.name, length, QKV_HEAD_DIM, qkv.dtype, packed=True)
         if b * heads >= 2 ** 31:
             raise ValueError(f"{self.name}: more (image, head) blocks than "
                              "a grid holds")

@@ -2,13 +2,13 @@
 csrc/grid_pool_bwd.cu).
 
 `GRID_POOL_FWD` replaces the TPU kernel `_pool_kernel`
-(gridmm_tpu/ops/pallas/grid_pool_kernel.py:30). The wrapper checks its
-inputs, computes the per-cell max with one scatter-max (outside the kernel,
-as `_prep_inputs` does around the Pallas body), allocates the zero-filled
-outputs and launches on the current stream. `GRID_POOL_BWD1` and
-`GRID_POOL_BWD2` replace `_pool_bwd1_kernel` (:164) and `_pool_bwd2_kernel`
-(:198), the two passes of the pool's backward. Each launcher's `launches`
-counts its kernel launches.
+(gridmm_tpu/ops/pallas/grid_pool_kernel.py:30) and what surrounds it there:
+one launch writes the pooled cells, the cell mask, the denominator and the
+per-cell max, none of which needs initialising. The wrapper checks its
+inputs, allocates the four outputs and launches on the current stream.
+`GRID_POOL_BWD1` and `GRID_POOL_BWD2` replace `_pool_bwd1_kernel` (:164) and
+`_pool_bwd2_kernel` (:198), the two passes of the pool's backward. Each
+launcher's `launches` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -23,6 +23,12 @@ CELL_PAD = 256
 SOURCE = "grid_pool_fwd"
 SOURCE_BWD = "grid_pool_bwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the forward keeps a 16-bit index and a weight per point of a batch row in
+# shared memory (232,448 bytes a block, less at most 48 KB of partial sums
+# and 2 KB of fixed tables)
+MAX_POINTS = (232448 - 49152 - 2048) // 6
+MAX_GROUP = 4            # cells a block may own
+TARGET_BLOCKS = 1024     # blocks the forward aims to give the card
 
 
 class GridPoolFwd:
@@ -41,49 +47,54 @@ class GridPoolFwd:
             self._fn = build.function(SOURCE, "gridmm_grid_pool_fwd", [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         return self._fn
 
-    def __call__(self, point_fts, cell_ids, weights, num_cells: int = 196,
-                 cmax=None):
+    def __call__(self, point_fts, cell_ids, weights, num_cells: int = 196):
         """(B,N,D) f32|bf16 features, (B,N) int32 cells, (B,N) f32 weights
-        -> (numer (B, num_cells, D) f32, denom (B, 256) f32). `cmax` is
-        `cell_max(cell_ids, weights, num_cells)` where the caller already
-        has it (the backward needs it again)."""
+        -> (pooled (B, num_cells, D) f32, cell_mask (B, num_cells) bool,
+        denom (B, 256) f32, cmax (B, num_cells) f32, -inf for empty cells).
+        The same inputs give the same bits on every run."""
         b, n, d = _check_points(self.name, point_fts, cell_ids, weights,
                                 num_cells)
-        if b * n >= 2 ** 31 or n * d >= 2 ** 31:
-            raise ValueError("grid_pool_fwd indexes rows with 32-bit ints")
-
-        if cmax is None:
-            cmax = cell_max(cell_ids, weights, num_cells)
-        _check_f32(self.name, point_fts.device, cmax=(cmax, (b, num_cells)))
-        numer = torch.zeros((b, num_cells, d), dtype=torch.float32,
-                            device=point_fts.device)
-        denom = torch.zeros((b, CELL_PAD), dtype=torch.float32,
-                            device=point_fts.device)
-        self.launch(point_fts, cell_ids, weights, cmax, numer, denom)
+        if n > MAX_POINTS:
+            raise ValueError(f"{self.name}: N={n} points a row need more "
+                             f"shared memory than a block has (at most "
+                             f"{MAX_POINTS})")
+        if b > 65535 or n * d >= 2 ** 31:
+            raise ValueError(f"{self.name}: B={b} rows or N*D={n * d} "
+                             "elements a row exceed the kernel's grid or "
+                             "its 32-bit row offsets")
+        dev = point_fts.device
+        pooled = torch.empty((b, num_cells, d), dtype=torch.float32,
+                             device=dev)
+        cell_mask = torch.empty((b, num_cells), dtype=torch.bool, device=dev)
+        denom = torch.empty((b, CELL_PAD), dtype=torch.float32, device=dev)
+        cmax = torch.empty((b, num_cells), dtype=torch.float32, device=dev)
+        self.launch(point_fts, cell_ids, weights, pooled, cell_mask, denom,
+                    cmax)
         self.launches += 1
-        return numer, denom
+        return pooled, cell_mask, denom, cmax
 
-    def launch(self, point_fts, cell_ids, weights, cmax, numer, denom):
-        """The bare kernel launch on checked, prepared tensors: adds into
-        `numer` and `denom` (zero-filled by the caller). Not counted."""
+    def launch(self, point_fts, cell_ids, weights, pooled, cell_mask, denom,
+               cmax):
+        """The bare kernel launch on checked tensors: writes all four
+        outputs in full. Not counted."""
         b, n, d = point_fts.shape
         num_cells = cmax.shape[1]
         dev = point_fts.device
-        # enough N slices to give every SM two blocks
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tiles = b * ((d + 127) // 128)
-        n_slices = max(1, min(-(-n // 256), -(-2 * sms // tiles)))
+        # cells a block owns: fewer at small B, so that the card still gets
+        # about TARGET_BLOCKS blocks; more at large B, so that fewer blocks
+        # reread a row's cell ids
+        group = max(1, min(MAX_GROUP, -(-b * num_cells // TARGET_BLOCKS)))
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             err = self._function()(
                 point_fts.data_ptr(), _DTYPE_CODE[point_fts.dtype],
-                cell_ids.data_ptr(), weights.data_ptr(), cmax.data_ptr(),
-                numer.data_ptr(), denom.data_ptr(), b, n, d, num_cells,
-                n_slices, stream)
+                cell_ids.data_ptr(), weights.data_ptr(), pooled.data_ptr(),
+                cell_mask.data_ptr(), denom.data_ptr(), cmax.data_ptr(),
+                b, n, d, num_cells, group, stream)
         if err != 0:
             raise RuntimeError(f"grid_pool_fwd launch failed: cudaError {err}")
 
@@ -114,6 +125,8 @@ def _check_points(name, point_fts, cell_ids, weights, num_cells):
     if not (point_fts.is_contiguous() and cell_ids.is_contiguous()
             and weights.is_contiguous()):
         raise ValueError(f"{name} needs contiguous inputs")
+    if point_fts.data_ptr() % 16:
+        raise ValueError(f"{name} needs 16-byte aligned features")
     if not 1 <= num_cells <= CELL_PAD:
         raise ValueError(f"num_cells must be in [1, {CELL_PAD}]")
     return b, n, d
@@ -202,22 +215,8 @@ def grid_pool_bwd(point_fts, cell_ids, weights, cmax, denom, cot):
     return d_fts, d_w, s, big_s
 
 
-def cell_max(cell_ids, weights, num_cells: int = 196):
-    """(B, num_cells) per-cell max of the weights (-inf for empty cells) —
-    the softmax stabilizer `_prep_inputs` computes outside the Pallas body."""
-    b = cell_ids.shape[0]
-    valid = (cell_ids >= 0) & (cell_ids < num_cells)
-    seg = torch.where(valid, cell_ids,
-                      torch.full_like(cell_ids, num_cells)).long()
-    cmax = torch.full((b, num_cells + 1), float("-inf"),
-                      device=cell_ids.device).scatter_reduce_(
-        1, seg, weights.masked_fill(~valid, float("-inf")), "amax")
-    return cmax[:, :num_cells].contiguous()
-
-
 GRID_POOL_FWD = GridPoolFwd()
 
 
-def grid_pool_fwd(point_fts, cell_ids, weights, num_cells: int = 196,
-                  cmax=None):
-    return GRID_POOL_FWD(point_fts, cell_ids, weights, num_cells, cmax)
+def grid_pool_fwd(point_fts, cell_ids, weights, num_cells: int = 196):
+    return GRID_POOL_FWD(point_fts, cell_ids, weights, num_cells)

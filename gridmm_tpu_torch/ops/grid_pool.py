@@ -8,10 +8,12 @@ Replaces the reference's O(B * 196 * N) python cell-pooling loop
     mask[b, c]   = any point landed in cell c                 (vilmodel.py:802-806)
 
 `grid_pool` dispatches by device: a CUDA tensor goes through the hand-written
-kernels (ops/cuda/grid_pool.py; csrc/grid_pool_fwd.cu forward,
+kernels (ops/cuda/grid_pool.py; csrc/grid_pool_fwd.cu forward, one launch
+that also writes the mask, the denominator and the cell max;
 csrc/grid_pool_bwd.cu backward), a CPU tensor through `grid_scatter_pool_raw`
 and `grid_pool_bwd_plain`, the plain PyTorch versions of the same contract
-and the kernels' oracles. Both devices go through one `GridPoolFunction`, so
+and the kernels' oracles (`cell_max` and `_finalize` are parts of the plain
+version only). Both devices go through one `GridPoolFunction`, so
 the pool is differentiable in `point_fts` and `weights` everywhere.
 """
 
@@ -68,9 +70,9 @@ def grid_scatter_pool_raw(
     seg = torch.where(valid, cell_ids, torch.full_like(cell_ids, num_cells)
                       ).long()
     w = weights.to(acc).masked_fill(~valid, float("-inf"))
-    cmax = torch.full((b, num_cells + 1), float("-inf"), dtype=acc,
-                      device=dev).scatter_reduce(1, seg, w, "amax")
-    e = torch.exp(w - cmax.gather(1, seg)).masked_fill(~valid, 0.0)
+    cmax = cell_max(cell_ids, weights.to(acc), num_cells)
+    e = torch.exp(w - cmax.gather(1, seg.clamp(max=num_cells - 1))
+                  ).masked_fill(~valid, 0.0)
 
     denom = torch.zeros((b, CELL_PAD + 1), dtype=acc, device=dev
                         ).scatter_add(1, seg, e)
@@ -83,9 +85,24 @@ def grid_scatter_pool_raw(
     return _finalize(numer, denom, num_cells)
 
 
+def cell_max(cell_ids, weights, num_cells: int = 196):
+    """(B, num_cells) per-cell max of the weights, -inf for empty cells: the
+    softmax stabilizer `_prep_inputs` computes outside the Pallas body
+    (grid_pool_kernel.py:65-87), in the weights' dtype. The backward kernels
+    read it as a residual of the forward."""
+    b = cell_ids.shape[0]
+    valid = (cell_ids >= 0) & (cell_ids < num_cells)
+    seg = torch.where(valid, cell_ids,
+                      torch.full_like(cell_ids, num_cells)).long()
+    cmax = torch.full((b, num_cells + 1), float("-inf"), dtype=weights.dtype,
+                      device=cell_ids.device).scatter_reduce(
+        1, seg, weights.masked_fill(~valid, float("-inf")), "amax")
+    return cmax[:, :num_cells].contiguous()
+
+
 def _finalize(numer, denom_pad, num_cells):
     """pooled = numer / denom with empty cells -> 0 (grid_pool_kernel.py
-    :135-141); shared by the plain version and the kernel wrapper."""
+    :135-141); the CUDA forward does this inside its one launch."""
     denom = denom_pad[:, :num_cells]
     cell_mask = denom > 0
     safe = torch.where(cell_mask, denom, torch.ones_like(denom))
@@ -146,11 +163,13 @@ def grid_pool_bwd_plain(point_fts, cell_ids, weights, denom_pad, cot):
 class GridPoolFunction(torch.autograd.Function):
     """The dispatching pool with its analytic backward.
 
-    forward: the CUDA forward kernel for tensors on the card, the plain
-    version for tensors on the CPU; returns (pooled, cell_mask, denom), of
-    which only `pooled` is differentiable. backward: the two CUDA backward
-    kernels on the card, `grid_pool_bwd_plain` on the CPU. `cell_ids` gets
-    no gradient. Neither side gives way to the other when a kernel fails.
+    forward: the CUDA forward kernel for tensors on the card (one launch:
+    pooled, mask, denominator and cell max), the plain version for tensors
+    on the CPU; returns (pooled, cell_mask, denom), of which only `pooled`
+    is differentiable. backward: the two CUDA backward kernels on the card,
+    which read the forward's cell max and denominator, `grid_pool_bwd_plain`
+    on the CPU. `cell_ids` gets no gradient. Neither side gives way to the
+    other when a kernel fails.
     """
 
     @staticmethod
@@ -160,13 +179,10 @@ class GridPoolFunction(torch.autograd.Function):
             pooled, cell_mask, denom = grid_scatter_pool_raw(
                 point_fts, cell_ids, weights, num_cells)
         else:
-            from gridmm_tpu_torch.ops.cuda.grid_pool import (cell_max,
-                                                             grid_pool_fwd)
+            from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_fwd
 
-            cmax = cell_max(cell_ids, weights, num_cells)
-            numer, denom = grid_pool_fwd(point_fts, cell_ids, weights,
-                                         num_cells, cmax)
-            pooled, cell_mask, denom = _finalize(numer, denom, num_cells)
+            pooled, cell_mask, denom, cmax = grid_pool_fwd(
+                point_fts, cell_ids, weights, num_cells)
         ctx.save_for_backward(point_fts, cell_ids, weights, denom, cmax)
         ctx.mark_non_differentiable(cell_mask, denom)
         return pooled, cell_mask, denom

@@ -31,7 +31,9 @@ from gridmm_tpu.ops.pallas.attention_qkv import \
 from gridmm_tpu.ops.pallas.layernorm import fused_layernorm  # noqa: E402
 from gridmm_tpu_torch.convert import (flax_to_state_dict,  # noqa: E402
                                       load_flax_params)
-from gridmm_tpu_torch.ops.attention import attention, attention_qkv  # noqa: E402
+from gridmm_tpu_torch.ops.attention import (attention,  # noqa: E402
+                                            attention_qkv,
+                                            attention_qkv_plain)
 from gridmm_tpu_torch.ops.layernorm import layernorm  # noqa: E402
 from torch_parity import (DROPPED_CLIP_FIELDS,  # noqa: E402
                           assert_close, openai_visual_state_dict,
@@ -109,6 +111,24 @@ def test_attention_qkv_matches_jax(b, l, heads):
     assert_close(got, pallas, rtol=2e-5, atol=2e-5)
     assert_close(got, jax_einsum_attention(jnp.asarray(qkv), heads),
                  rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,l,heads", [(4, 1, 2), (3, 17, 4)])
+def test_attention_qkv_plain_matches_jax_at_tile_edges(b, l, heads):
+    """L = 1 and 17, the edges of the CUDA kernel's 16-key tiles: its oracle
+    `attention_qkv_plain` against the Pallas kernel in interpret mode (one
+    image a block: L is no multiple of 8) and the einsum path, within 2e-5."""
+    rng = np.random.default_rng(b + l)
+    qkv = rng.standard_normal((b, l, 3 * heads * 64)).astype(np.float32)
+    got = attention_qkv_plain(torch.from_numpy(qkv), heads)
+    pallas = fused_attention_qkv(jnp.asarray(qkv), heads=heads,
+                                 imgs_per_block=1, interpret=True)
+    assert tuple(got.shape) == (b, l, heads * 64)
+    assert_close(got, pallas, rtol=2e-5, atol=2e-5)
+    assert_close(got, jax_einsum_attention(jnp.asarray(qkv), heads),
+                 rtol=2e-5, atol=2e-5)
+    if l == 1:      # one key: the context is v itself
+        assert_close(got, qkv[..., 2 * heads * 64:], rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("hd", [16, 64, 128])

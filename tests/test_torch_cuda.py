@@ -16,15 +16,16 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from gridmm_tpu_torch.ops.grid_pool import (_finalize,  # noqa: E402
+from gridmm_tpu_torch.ops.grid_pool import (cell_max,  # noqa: E402
                                             grid_scatter_pool_raw)
 
 B, N, D = 8, 8832, 768
 
 
 def pool_case(kind: str, dtype, seed: int = 0):
-    """Serving-sized pool inputs: random cells with ~5% invalid, plus an
-    all-invalid batch row, a one-point cell and empty cells."""
+    """Serving-sized pool inputs: random cells with ~5% invalid; "edges"
+    adds an all-invalid batch row, a one-point cell and empty cells; "skew"
+    a row where cell 17 holds 90% of the points, and an all-invalid row."""
     rng = np.random.default_rng(seed)
     g = rng.standard_normal((B, N, D)).astype(np.float32)
     cells = rng.integers(0, 196, size=(B, N)).astype(np.int32)
@@ -35,6 +36,9 @@ def pool_case(kind: str, dtype, seed: int = 0):
         cells[2][cells[2] == 7] = 8         # cell 7: exactly one point
         cells[2, 100] = 7
         cells[3][cells[3] < 50] = 60        # cells 0..49 empty
+    if kind == "skew":
+        cells[0][rng.random(N) < 0.9] = 17  # one cell holds 90% of the row
+        cells[1] = -1
     dev = "cuda"
     return (torch.from_numpy(g).to(dev, dtype), torch.from_numpy(cells).to(dev),
             torch.from_numpy(w).to(dev))
@@ -46,30 +50,79 @@ def _require_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "edges"])
+@pytest.mark.parametrize("kind", ["random", "edges", "skew"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_grid_pool_kernel_matches_plain(kind, dtype):
     """mask exact; pooled within 1e-5 x max|pooled| (f32) or one bf16 ulp of
     the largest input (bf16: 2^-8 x max|g|); denominator within 1e-5
-    relative. The kernel's atomics add in a varying order, hence not 0."""
+    relative; the cell max equal to `cell_max`, -inf for empty cells. The
+    sums run in another order than the plain version's, hence not 0."""
     _require_card()
     from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_fwd
 
     g, cells, w = pool_case(kind, getattr(torch, dtype))
-    numer, denom = grid_pool_fwd(g, cells, w)
-    got_p, got_m, got_d = _finalize(numer, denom, 196)
+    got_p, got_m, got_d, got_x = grid_pool_fwd(g, cells, w)
     want_p, want_m, want_d = grid_scatter_pool_raw(g, cells, w)
     torch.cuda.synchronize()
-    assert torch.equal(got_m, want_m)
+    assert got_m.dtype == torch.bool and torch.equal(got_m, want_m)
+    assert torch.equal(got_x, cell_max(cells, w))
     atol = (1e-5 * want_p.abs().max().item() if dtype == "float32"
             else 2.0 ** -8 * g.float().abs().max().item())
     torch.testing.assert_close(got_p, want_p, rtol=1e-5, atol=atol)
     torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=0.0)
+    assert (got_d[:, 196:] == 0).all()
     if kind == "edges":
         assert not got_m[1].any() and (got_p[1] == 0).all()
         assert got_m[2, 7] and not got_m[3, :50].any()
         torch.testing.assert_close(got_p[2, 7], g[2, 100].float(),
                                    rtol=1e-6, atol=1e-6)
+    if kind == "skew":
+        assert not got_m[1].any() and (got_p[1] == 0).all()
+        assert (got_x[1] == float("-inf")).all() and (got_d[1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grid_pool_kernel_same_bits_on_every_run(dtype):
+    """No atomics and a fixed order of every sum: two runs on the same
+    inputs give equal bits in all four outputs."""
+    _require_card()
+    from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_fwd
+
+    g, cells, w = pool_case("skew", getattr(torch, dtype), seed=4)
+    first = grid_pool_fwd(g, cells, w)
+    second = grid_pool_fwd(g, cells, w)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,cells_n", [(2, 1000, 30, 196), (1, 37, 1500, 5),
+                                           (16, 8820, 768, 196),
+                                           (3, 300, 64, 256)])
+def test_grid_pool_kernel_other_shapes(b, n, d, cells_n):
+    """D not a multiple of 4 (scalar path) or above one slab's 1024 columns,
+    N not a multiple of anything, the cell count's ends, and a batch large
+    enough for several cells a block."""
+    _require_card()
+    from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_fwd
+
+    rng = np.random.default_rng(n + d)
+    g = torch.from_numpy(rng.standard_normal((b, n, d)).astype(
+        np.float32)).cuda()
+    cells = torch.from_numpy(rng.integers(-1, cells_n + 2, size=(b, n)
+                                          ).astype(np.int32)).cuda()
+    w = torch.from_numpy(rng.standard_normal((b, n)).astype(
+        np.float32)).cuda()
+    got_p, got_m, got_d, got_x = grid_pool_fwd(g, cells, w, cells_n)
+    want_p, want_m, want_d = grid_scatter_pool_raw(g, cells, w, cells_n)
+    torch.cuda.synchronize()
+    assert torch.equal(got_m, want_m)
+    assert torch.equal(got_x, cell_max(cells, w, cells_n))
+    torch.testing.assert_close(got_p, want_p, rtol=1e-5,
+                               atol=1e-5 * want_p.abs().max().item())
+    torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=0.0)
 
 
 @pytest.mark.cuda
@@ -86,14 +139,17 @@ def test_grid_pool_kernel_counts_launches_and_rejects_bad_input():
         GRID_POOL_FWD(g, cells.long(), w)
     with pytest.raises(ValueError):
         GRID_POOL_FWD(g[:, ::2], cells[:, ::2], w[:, ::2])
+    with pytest.raises(ValueError):               # the list overflows smem
+        GRID_POOL_FWD(torch.zeros((1, 60000, 4), device="cuda"),
+                      torch.zeros((1, 60000), dtype=torch.int32,
+                                  device="cuda"),
+                      torch.zeros((1, 60000), device="cuda"))
     assert GRID_POOL_FWD.launches == before + 1
 
 
 # ------------------------------------------------ K5a/K5b pool backward
 def _bwd_case(kind, dtype, b, n, seed=0):
     """pool_case at (b, n) with a cotangent and the forward's residuals."""
-    from gridmm_tpu_torch.ops.cuda.grid_pool import cell_max
-
     g, cells, w = pool_case(kind, dtype, seed)
     g, cells, w = (g[:b, :n].contiguous(), cells[:b, :n].contiguous(),
                    w[:b, :n].contiguous())
@@ -260,9 +316,12 @@ def _attn_tol(dtype, v):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,heads", [(192, 50, 12), (32, 197, 12),
-                                       (3, 7, 2), (2, 1, 1)])
+                                       (3, 7, 2), (2, 1, 1), (5, 17, 3),
+                                       (4, 64, 2), (2, 65, 12), (1, 400, 1)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_qkv_kernel_matches_plain(b, l, heads, dtype):
+    """bf16 runs on the tensor cores, f32 on the CUDA cores; L = 1, 17, 64
+    and 65 sit on the edges of the 16-key and 64-query tiles."""
     _require_card()
     from gridmm_tpu_torch.ops.attention import attention_qkv_plain
     from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_QKV_FWD

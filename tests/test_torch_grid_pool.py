@@ -13,13 +13,14 @@ import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 import gridmm_tpu.ops.grid_pool as JP  # noqa: E402
 import gridmm_tpu_torch.ops.grid_pool as TP  # noqa: E402
-from gridmm_tpu.ops.pallas.grid_pool_kernel import \
-    pallas_grid_pool_raw  # noqa: E402
+from gridmm_tpu.ops.pallas.grid_pool_kernel import (  # noqa: E402
+    _prep_inputs, pallas_grid_pool_raw)
 from gridmm_tpu_torch.ops.cuda.grid_pool import GRID_POOL_FWD  # noqa: E402
 from torch_parity import assert_close, to_torch  # noqa: E402
 
@@ -37,6 +38,82 @@ def pool_case(b=3, n=1024, d=128, seed=0):
     cells[2, 100] = 7
     cells[0][(cells[0] >= 0) & (cells[0] < 50)] = 60
     return g, cells, w
+
+
+def residual_case(kind, b=3, n=1024, d=64, seed=5):
+    """pool_case plus the shapes the CUDA forward's owners must get right:
+    "edges" as pool_case (an empty cell range, a one-point cell, an
+    all-invalid row); "all_invalid" every row invalid; "skew" cell 17 holds
+    90% of row 0."""
+    g, cells, w = pool_case(b, n, d, seed)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "all_invalid":
+        cells[:] = -1
+    if kind == "skew":
+        cells[0][rng.random(n) < 0.9] = 17
+    return g, cells, w
+
+
+@pytest.mark.parametrize("kind", ["edges", "all_invalid", "skew"])
+def test_plain_cell_max_and_denominator_match_jax_residuals(kind):
+    """The residuals the CUDA forward hands to the backward, as the plain
+    version computes them, against the JAX package's: the cell max of
+    `_prep_inputs` (which writes 0 where the port keeps -inf, for an empty
+    cell) and the denominator of the Pallas kernel in interpret mode; f32
+    within 1e-5."""
+    g, cells, w = residual_case(kind)
+    tg, tc, tw = to_torch((g, cells, w))
+    cmax = TP.cell_max(tc, tw)
+    pooled, mask, denom = TP.grid_scatter_pool_raw(tg, tc, tw)
+    _, _, jmax, _ = _prep_inputs(jnp.asarray(g), jnp.asarray(cells),
+                                 jnp.asarray(w), 196, 256)
+    jmax = np.asarray(jmax)[:, 0, :196]
+    k_p, k_m, k_d = pallas_grid_pool_raw(jnp.asarray(g), jnp.asarray(cells),
+                                         jnp.asarray(w), chunk=256,
+                                         interpret=True)
+    assert cmax.shape == (3, 196) and cmax.dtype == torch.float32
+    filled = mask.numpy()
+    np.testing.assert_array_equal(filled, np.asarray(k_m))
+    assert torch.isinf(cmax[~mask]).all() and (cmax[~mask] < 0).all()
+    assert (jmax[~filled] == 0).all()
+    assert_close(cmax[mask], jmax[filled], rtol=1e-5, atol=1e-5)
+    assert_close(denom, k_d, rtol=1e-5, atol=1e-5)
+    assert (denom[:, :196][~mask] == 0).all() and (denom[:, 196:] == 0).all()
+    assert_close(pooled, k_p, rtol=1e-5, atol=1e-5)
+    if kind == "all_invalid":
+        assert not mask.any() and (pooled == 0).all()
+    if kind == "skew":
+        assert int((tc[0] == 17).sum()) > 0.85 * tc.shape[1] and mask[0, 17]
+
+
+@pytest.mark.parametrize("kind", ["edges", "skew"])
+def test_pool_function_on_cpu_returns_three_outputs_with_jax_vjp(kind):
+    """`GridPoolFunction` on the CPU: (pooled, cell_mask, denom) from the
+    plain version, and gradients of the features and the weights equal to
+    the JAX package's VJP of `grid_scatter_pool`, within 1e-5 of their max."""
+    g, cells, w = residual_case(kind)
+    rng = np.random.default_rng(9)
+    cot = rng.standard_normal((3, 196, g.shape[-1])).astype(np.float32)
+    tg = torch.from_numpy(g).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    out = TP.GridPoolFunction.apply(tg, torch.from_numpy(cells), tw, 196)
+    assert len(out) == 3
+    pooled, mask, denom = out
+    want = TP.grid_scatter_pool_raw(tg.detach(), torch.from_numpy(cells),
+                                    tw.detach())
+    for a, b in zip(out, want):
+        assert torch.equal(a.detach(), b)
+    assert pooled.requires_grad and not mask.requires_grad \
+        and not denom.requires_grad
+    pooled.backward(torch.from_numpy(cot))
+    _, vjp = jax.vjp(
+        lambda f, x: JP.grid_scatter_pool(f, jnp.asarray(cells), x)[0],
+        jnp.asarray(g), jnp.asarray(w))
+    jg, jw = vjp(jnp.asarray(cot))
+    for got, ref in ((tg.grad, jg), (tw.grad, jw)):
+        ref = np.asarray(ref)
+        tol = 1e-5 * max(float(np.abs(ref).max()), 1.0)
+        assert_close(got, ref, rtol=0, atol=tol)
 
 
 def test_plain_pool_matches_xla_and_pallas_interpret():
