@@ -3,6 +3,7 @@
 on the card (gridmm_tpu_torch).
 
     python3 chip_profile.py [--steps 5]
+    python3 chip_profile.py --ab OTHER_TREE
 
 Builds the full-width R2R navigator (seeded random weights), fills a 4-slot
 serving engine's point buffers with 15 steps, then:
@@ -21,12 +22,23 @@ serving engine's point buffers with 15 steps, then:
     warm-up, then traces one more: launches, device time by operator and
     the device-busy share of the update.
 
-Needs one NVIDIA card; writes the tables to chiprun_out/chip_profile.txt.
+The encode's and the pipeline's tables are followed by LayerNorm's launches
+and device time per launch.
+
+With --ab, it only times LayerNorm (K3) and the pool backward's two passes
+(K5a, K5b) as built from this tree's csrc/ and from OTHER_TREE's (a checkout
+of another commit, for example the parent unpacked with `git archive`) in
+one process, on the same inputs, in turns (other, this, this, other), at the
+main paths' shapes, reading from device memory.
+
+Needs one NVIDIA card; writes the tables to chiprun_out/chip_profile.txt
+(chip_profile_ab.json with --ab).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 from pathlib import Path
@@ -35,8 +47,9 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (PIPE_PANOS, SERVE_SLOTS, card, pipeline_inputs,
-                        request_text, step_row)
+from chip_smoke import (PIPE_PANOS, SERVE_SLOTS, bwd_inputs, card,
+                        copies_for, cuda_ms, pipeline_inputs, pool_case,
+                        request_text, require, rotating_ms, step_row)
 from gridmm_tpu_torch.config import r2r_config
 from gridmm_tpu_torch.data.preprocess import ClipFeatureExtractor
 from gridmm_tpu_torch.models.clip_vit import clip_b32
@@ -44,6 +57,10 @@ from gridmm_tpu_torch.pipeline import encode_and_pool
 from gridmm_tpu_torch.models.navigator import init_navigator
 from gridmm_tpu_torch.ops import geometry as G
 from gridmm_tpu_torch.ops import grid_pool as GP
+from gridmm_tpu_torch.ops.cuda import build
+from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
+                                                 GRID_POOL_BWD2, SOURCE_BWD)
+from gridmm_tpu_torch.ops.cuda.layernorm import LAYERNORM_FWD
 from gridmm_tpu_torch.serve.engine import NavServingEngine
 from gridmm_tpu_torch.train.step import create_train_state, make_train_step
 from gridmm_tpu_torch.train.synthetic import synthetic_trajectory_batch
@@ -55,8 +72,10 @@ def device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total", 0.0) or 0.0)
 
 
-def summarize(prof, wall_s, per, label, out, top=15):
-    """Device-busy share, launches per call and the top operators."""
+def summarize(prof, wall_s, per, label, out, top=15, watch=()):
+    """Device-busy share, launches per call and the top operators; for each
+    name fragment in `watch`, the launches per call and the device time per
+    launch of the kernels whose name holds it."""
     events = prof.key_averages()
     # device-side events only (kernels, memcpy, memset): the operator rows
     # above them report the same device time again, and so does the span of
@@ -74,14 +93,140 @@ def summarize(prof, wall_s, per, label, out, top=15):
                      "device events)")
     lines.append(events.table(sort_by="self_device_time_total",
                               row_limit=top, max_name_column_width=60))
+    for frag in watch:
+        hits = [e for e in kernels if frag in e.key]
+        n = sum(e.count for e in hits)
+        us = sum(device_us(e) for e in hits)
+        lines.append(f"   {frag}: {n / per:.1f} launches per call, "
+                     f"{us / max(n, 1):.3f} us device time per launch, "
+                     f"{100 * us / max(busy_us, 1e-9):.1f}% of the device "
+                     f"time")
     text = "\n".join(lines)
     print(text)
     out.append(text)
 
 
+def ab_kernels(other_root: Path, dev_name: str) -> dict:
+    """K3, K5a and K5b from this tree's csrc/ and from `other_root`'s, on the
+    same inputs, timed in turns (other, this, this, other). Both trees must
+    export the same C entry points. Returns {case: {tree: [ms, ms]}}."""
+    trees = {"other": other_root / "gridmm_tpu_torch" / "csrc",
+             "this": build.SRC_DIR}
+    fns = {}
+    for tree, src in trees.items():
+        build.build_all(["layernorm_fwd", SOURCE_BWD], src)
+        fns[tree] = {
+            "ln": build.function("layernorm_fwd", LAYERNORM_FWD.symbol,
+                                 LAYERNORM_FWD.argtypes, src),
+            "bwd1": build.function(SOURCE_BWD, GRID_POOL_BWD1.symbol,
+                                   GRID_POOL_BWD1.argtypes, src),
+            "bwd2": build.function(SOURCE_BWD, GRID_POOL_BWD2.symbol,
+                                   GRID_POOL_BWD2.argtypes, src)}
+    stream = torch.cuda.current_stream().cuda_stream
+    result = {}
+
+    def run(fn, *args):
+        err = fn(*args, stream)
+        require(err == 0, f"launch failed: cudaError {err}")
+
+    def turns(case, timer):
+        got = {"other": [], "this": []}
+        for tree in ("other", "this", "this", "other"):
+            got[tree].append(timer(tree))
+        result[case] = got
+        print(f"  {case}: other {got['other'][0]:.5f} / "
+              f"{got['other'][1]:.5f} ms, this {got['this'][0]:.5f} / "
+              f"{got['this'][1]:.5f} ms [{dev_name}]")
+
+    rng = np.random.default_rng(5)
+    for rows, c, dtype in ((9600, 768, torch.bfloat16),
+                           (9600, 768, torch.float32),
+                           (2400, 64, torch.bfloat16),
+                           (2400, 64, torch.float32)):
+        size = 2 if dtype == torch.bfloat16 else 4
+        code = 0 if dtype == torch.float32 else 1
+        sets = []
+        for _ in range(copies_for(2 * rows * c * size)):
+            x = torch.from_numpy(rng.standard_normal((rows, c)).astype(
+                np.float32)).to("cuda", dtype)
+            sets.append((x, torch.rand(c, device="cuda") + 0.5,
+                         torch.randn(c, device="cuda"), torch.empty_like(x)))
+
+        def ln(tree, x, w, b, y):
+            run(fns[tree]["ln"], x.data_ptr(), code, w.data_ptr(),
+                b.data_ptr(), y.data_ptr(), rows, c, 1e-5)
+
+        ys = {}
+        for tree in trees:
+            ln(tree, *sets[0])
+            ys[tree] = sets[0][3].float()
+        torch.testing.assert_close(ys["this"], ys["other"], rtol=2.0 ** -7,
+                                   atol=1e-5)
+        case = f"layernorm_fwd ({rows}, {c}) {str(dtype)[6:]}"
+        turns(case, lambda tree: rotating_ms(lambda *a: ln(tree, *a), sets))
+        # a practical ceiling: PyTorch's copy of the same bytes
+        result[case]["copy_ms"] = rotating_ms(
+            lambda x, w, b, y: y.copy_(x), sets)
+        print(f"    copy_ of the same bytes: {result[case]['copy_ms']:.5f} ms")
+        del sets, ys
+
+    # the pool backward at the train shape: B=16, N=8820, D=768 f32
+    g, cells, w = pool_case("random", 16, torch.float32, seed=6, n=8820)
+    b, n, d = g.shape
+    cmax, denom, cot = bwd_inputs(g, cells, w, seed=1)
+    dg = torch.empty_like(g)
+    s_pt = torch.empty((b, n), device="cuda")
+    big_s = torch.zeros((b, 256), device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def pass1(tree):
+        big_s.zero_()
+        run(fns[tree]["bwd1"], g.data_ptr(), 0, cells.data_ptr(),
+            w.data_ptr(), cmax.data_ptr(), denom.data_ptr(), cot.data_ptr(),
+            dg.data_ptr(), s_pt.data_ptr(), big_s.data_ptr(), b, n, d, 196,
+            sms * 32)
+
+    def pass2(tree, cells, w, cmax, denom, big_s, s_pt, dw):
+        run(fns[tree]["bwd2"], cells.data_ptr(), w.data_ptr(),
+            cmax.data_ptr(), denom.data_ptr(), big_s.data_ptr(),
+            s_pt.data_ptr(), dw.data_ptr(), b, n, 196)
+
+    pass1("this")
+    sets2 = [tuple(t.clone() for t in (cells, w, cmax, denom, big_s, s_pt))
+             + (torch.empty((b, n), device="cuda"),)
+             for _ in range(copies_for(b * n * 16))]
+    dws = {}
+    for tree in trees:
+        pass2(tree, *sets2[0])
+        dws[tree] = sets2[0][6].clone()
+    torch.testing.assert_close(dws["this"], dws["other"], rtol=0,
+                               atol=1e-5 * dws["other"].abs().max().item())
+    label = f"B={b} N={n} D={d} f32"
+    turns(f"grid_pool_bwd1 {label}",
+          lambda tree: cuda_ms(lambda: pass1(tree), iters=10, warmup=2))
+    turns(f"grid_pool_bwd2 {label}",
+          lambda tree: rotating_ms(lambda *a: pass2(tree, *a), sets2,
+                                   iters=len(sets2)))
+    turns(f"grid_pool_bwd2 {label}, from L2",
+          lambda tree: cuda_ms(lambda: pass2(tree, *sets2[0]), iters=30))
+    turns(f"both passes {label}",
+          lambda tree: cuda_ms(lambda: (pass1(tree), pass2(tree, *sets2[0])),
+                               iters=10, warmup=2))
+    one = torch.ones(1, device="cuda")
+    result["launch floor (a one-element torch.add)"] = cuda_ms(
+        lambda: torch.add(one, one, out=one), iters=30)
+    print(f"  launch floor (a one-element torch.add): "
+          f"{result['launch floor (a one-element torch.add)']:.5f} ms "
+          f"[{dev_name}]")
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--ab", type=Path, default=None, metavar="OTHER_TREE",
+                    help="only time K3, K5a and K5b against OTHER_TREE's "
+                         "sources")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -90,6 +235,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev_name = card()
     print(f"card: {dev_name}")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    if args.ab is not None:
+        result = ab_kernels(args.ab.resolve(), dev_name)
+        (out_dir / "chip_profile_ab.json").write_text(json.dumps(
+            {"card": dev_name, "other": str(args.ab), "ms": result},
+            indent=1))
+        return 0
     cfg = r2r_config()
     rng = np.random.default_rng(0)
     model = init_navigator(cfg.model, seed=0, device="cuda")
@@ -162,7 +315,8 @@ def main() -> int:
             ex.encode(images)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    summarize(prof, wall, 3, "encode x3 (clip_b32 bf16, 192 views)", out)
+    summarize(prof, wall, 3, "encode x3 (clip_b32 bf16, 192 views)", out,
+              watch=("layernorm",))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -171,7 +325,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     summarize(prof, wall, 3, f"encode_and_pool x3 ({PIPE_PANOS} panoramas, "
-              "full bf16 buffer)", out)
+              "full bf16 buffer)", out, watch=("layernorm",))
     del ex, images, steps, heads, state
 
     model = init_navigator(cfg.model, seed=1, device="cuda")
@@ -192,8 +346,6 @@ def main() -> int:
               f"train update x1 ({b} trajectories x {s} steps, "
               f"r2r_config() f32, remat_steps={cfg.train.remat_steps})", out,
               top=25)
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_profile.txt").write_text("\n".join(out) + "\n")
     return 0
 

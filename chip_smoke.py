@@ -12,10 +12,13 @@ Phases, in order (any failure raises and the exit code is not 0):
   (c) each kernel against its plain PyTorch version on the card, f32 and
       bf16: the grid pool (K1: pooled, mask, denominator and cell max, with
       an all-invalid row, a row whose points sit 90% in one cell, and two
-      runs that must give equal bits), LayerNorm (K3), packed-qkv attention
-      (K2: bf16 on the tensor cores, also at L = 1, 17 and 64; f32 on the
-      CUDA cores), per-head attention (K4) and the two passes of the pool's
-      backward (K5a, K5b);
+      runs that must give equal bits), LayerNorm (K3: every body, the
+      vector body at widths a warp or part of one takes, the scalar bodies
+      at odd widths and on an x off a 16-byte boundary), packed-qkv
+      attention (K2: bf16 on the tensor cores, also at L = 1, 17 and 64; f32
+      on the CUDA cores), per-head attention (K4) and the two passes of the
+      pool's backward (K5a, K5b, also at an odd N and on ids off an 8-byte
+      boundary);
   (d) the main paths, each driven with every launch count set to 0 just
       before it and read just after:
       - the serving engine at full R2R width (r2r_config(), seeded random
@@ -39,7 +42,9 @@ Phases, in order (any failure raises and the exit code is not 0):
         reproducibly) must agree, and a tiny update on the card must agree
         with the same on the CPU;
   (e) times with CUDA events (kernel, plain version, library yardstick,
-      bound; the pool at the serving, pipeline and train shapes), encode
+      bound; the pool at the serving, pipeline and train shapes; LayerNorm
+      at the tower's and the tiny tower's widths in both types; the launch
+      floor beside the pool backward's pass 2), encode
       and pipeline views/s, the pipeline's peak device memory,
       the serving step time, and the train update's time and peak memory,
       each beside the card;
@@ -364,8 +369,10 @@ def bwd_inputs(g, cells, w, seed):
 
 def check_pool_bwd_kernels(report):
     """(c) K5a and K5b against grid_pool_bwd_terms on the card, B = 4 and
-    16, N = 8820 (the stacked buffer: 15 x 588, not a multiple of 512) and
-    8832, D = 768, f32 and bf16 features, random and edges.
+    16, N = 8820 (the stacked buffer: 15 x 588, not a multiple of 512), 8832
+    and 8821 (odd: K5b's scalar head and tail), D = 768, f32 and bf16
+    features, random and edges; then K5b on ids and weights off an 8-byte
+    boundary (every point scalar).
       dg: f32 within 1e-5 x max|dg| (one product on each side); bf16 within
           one bf16 ulp of each value (2^-7 relative: both sides round the
           same f32 product, which may sit on a rounding boundary);
@@ -376,7 +383,7 @@ def check_pool_bwd_kernels(report):
     for kind in ("random", "edges"):
         base = pool_case(kind, 16, torch.float32, seed=3)
         for b in (4, 16):
-            for n in (8820, 8832):
+            for n in (8820, 8832, 8821):
                 for dtype in (torch.float32, torch.bfloat16):
                     g, cells, w = (base[0][:b, :n].to(dtype).contiguous(),
                                    base[1][:b, :n].contiguous(),
@@ -424,6 +431,20 @@ def check_pool_bwd_kernels(report):
                           f"{want[1].abs().max().item():.3e})")
                     del g, cells, w, cmax, denom, cot, got, want, dg, want_dg
         del base
+    g, cells, w = pool_case("edges", 4, torch.float32, seed=3, n=8820)
+    cmax, denom, cot = bwd_inputs(g, cells, w, seed=4)
+    shifted = [torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:]
+               .view_as(t).copy_(t) for t in (cells, w)]
+    require(all(t.data_ptr() % 8 for t in shifted), "ids not shifted")
+    got = grid_pool_bwd(g, *shifted, cmax, denom, cot)
+    want = GP.grid_pool_bwd_terms(g, cells, w, denom, cot)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[1], want[1], rtol=0,
+                               atol=1e-4 * want[1].abs().max().item())
+    err = (got[1] - want[1]).abs().max().item()
+    worst["grid_pool_bwd2"] = max(worst["grid_pool_bwd2"], err)
+    print(f"  grid_pool_bwd B=4 N=8820 float32 ids and weights off 8 B: "
+          f"max|diff| dw {err:.3e}")
     for name, err in worst.items():
         report[name]["max_abs_err"] = err
 
@@ -626,13 +647,22 @@ def time_pool(g, cells, w, label, dev_name):
 
 
 # ------------------------------------------------ (c) the encoder's kernels
+# (rows, C, x off a 16-byte boundary) of the LayerNorm check: the tower's
+# rows (192 images x 50 tokens, C=768) and the tiny tower's (C=64) run the
+# vector body (a warp a row, and 8 or 16 lanes a row); 520 and 40 leave
+# lanes idle; 17, 1500 and the shifted x run the scalar bodies
+LN_CASES = ((9600, 768, False), (2400, 64, False), (333, 520, False),
+            (1001, 40, False), (37, 1500, False), (5, 17, False),
+            (600, 768, True))
+
+
 def check_layernorm_kernel(report):
-    """(c) K3 vs plain at the tower's rows (192 images x 50 tokens, C=768)
-    and at C=64 (the tiny tower): f32 within 1e-5 (summation order), bf16
-    within one bf16 ulp (2^-7 relative: both round nearly one f32 value)."""
+    """(c) K3 vs plain at LN_CASES: f32 within 1e-5 (summation order),
+    bf16 within one bf16 ulp (2^-7 relative: both round nearly one f32
+    value)."""
     worst = 0.0
     rng = np.random.default_rng(11)
-    for rows, c in ((9600, 768), (2400, 64)):
+    for rows, c, shifted in LN_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.from_numpy((rng.standard_normal((rows, c)) * 2.0 + 0.5
                                   ).astype(np.float32)).to("cuda", dtype)
@@ -640,6 +670,10 @@ def check_layernorm_kernel(report):
                 np.float32)).cuda()
             b = torch.from_numpy((rng.standard_normal(c) * 0.1).astype(
                 np.float32)).cuda()
+            if shifted:
+                buf = torch.empty(rows * c + 3, dtype=dtype, device="cuda")
+                x = buf[3:].view(rows, c).copy_(x)
+                require(x.data_ptr() % 16 != 0, "x is not shifted")
             got = LAYERNORM_FWD(x, w, b)
             want = LN.layernorm_plain(x, w, b)
             torch.cuda.synchronize()
@@ -649,8 +683,9 @@ def check_layernorm_kernel(report):
                                        atol=atol)
             err = (got.float() - want.float()).abs().max().item()
             worst = max(worst, err)
-            print(f"  layernorm_fwd ({rows}, {c}) {str(dtype)[6:]:8s}: "
-                  f"max|diff| {err:.3e} (rtol {rtol:.1e})")
+            print(f"  layernorm_fwd ({rows}, {c}) {str(dtype)[6:]:8s}"
+                  f"{' x off 16 B' if shifted else ''}: max|diff| "
+                  f"{err:.3e} (rtol {rtol:.1e})")
     report["layernorm_fwd"]["max_abs_err"] = worst
 
 
@@ -1207,8 +1242,13 @@ def time_pool_bwd(g, cells, w, label, dev_name):
              for _ in range(copies_for(bytes2))]
     t2 = {"ms": rotating_ms(pass2, sets2, iters=len(sets2)),
           "plain_ms": rotating_ms(plain_pass2, sets2, iters=len(sets2)),
-          "library_ms": None}
+          "library_ms": None,
+          # the same inputs on every call, so from the L2
+          "l2_ms": cuda_ms(lambda: pass2(*sets2[0]), iters=30)}
     del sets2
+    # the launch floor: the smallest kernel, timed the same way
+    one = torch.ones(1, device="cuda")
+    t2["floor_ms"] = cuda_ms(lambda: torch.add(one, one, out=one), iters=30)
     flops = 4.0 * int(valid.sum()) * d
     t1["bound_ms"], t1["bound_by"] = bound(bwd_bytes(g, cells), flops,
                                            torch.float32)
@@ -1223,10 +1263,11 @@ def time_pool_bwd(g, cells, w, label, dev_name):
           f"passes) {t1['plain_ms']:.4f}, autograd of the index_add_ "
           f"forward {t1['library_ms']:.4f}, bound {t1['bound_ms']:.4f} ms "
           f"({t1['bound_by']}) [{dev_name}]")
-    print(f"  grid_pool_bwd2 {label}: kernel {t2['ms']:.5f} ms, plain "
-          f"{t2['plain_ms']:.5f}, bound {t2['bound_ms']:.5f} ms "
-          f"({t2['bound_by']}); both passes through the wrapper "
-          f"{t1['both_passes_ms']:.4f} ms [{dev_name}]")
+    print(f"  grid_pool_bwd2 {label}: kernel {t2['ms']:.5f} ms "
+          f"({t2['l2_ms']:.5f} from L2), plain {t2['plain_ms']:.5f}, bound "
+          f"{t2['bound_ms']:.5f} ms ({t2['bound_by']}), launch floor (a "
+          f"one-element torch.add) {t2['floor_ms']:.5f} ms; both passes "
+          f"through the wrapper {t1['both_passes_ms']:.4f} ms [{dev_name}]")
     return t1, t2
 
 
@@ -1314,15 +1355,27 @@ def time_encoder_kernels(dev_name):
             np.float32)).to("cuda", dtype)
 
     bf16, f32 = torch.bfloat16, torch.float32
-    rows, c = CLIP_BATCH * VIEWS * 50, 768
-    nbytes = 2 * rows * c * 2 + 2 * c * 4
-    sets = [(cuda((rows, c), bf16), cuda((c,), f32) + 1.0, cuda((c,), f32))
-            for _ in range(copies_for(nbytes))]
-    out["layernorm_fwd"] = time_kernel(
-        f"({rows}, {c}) bf16", LAYERNORM_FWD, LAYERNORM_FWD,
-        LN.layernorm_plain,
-        lambda x, w, b: F.layer_norm(x, (c,), w.to(bf16), b.to(bf16), 1e-5),
-        sets, nbytes, 8 * rows * c, f32, dev_name)
+    # K3 at the tower's shape (the main path's, bf16), in f32, and at the
+    # tiny tower's width. F.layer_norm takes scale and bias in x's type:
+    # they are cast once, outside the timed call
+    for rows, c, dtype, key in (
+            (CLIP_BATCH * VIEWS * 50, 768, bf16, "layernorm_fwd"),
+            (CLIP_BATCH * VIEWS * 50, 768, f32, "layernorm_fwd_f32"),
+            (4 * VIEWS * 50, 64, bf16, "layernorm_fwd_c64_bf16"),
+            (4 * VIEWS * 50, 64, f32, "layernorm_fwd_c64_f32")):
+        size = 2 if dtype == bf16 else 4
+        nbytes = 2 * rows * c * size + 2 * c * 4
+        sets = []
+        for _ in range(copies_for(nbytes)):
+            w, b = cuda((c,), f32) + 1.0, cuda((c,), f32)
+            sets.append((cuda((rows, c), dtype), w, b, w.to(dtype),
+                         b.to(dtype)))
+        out[key] = time_kernel(
+            f"({rows}, {c}) {str(dtype)[6:]}", LAYERNORM_FWD,
+            lambda x, w, b, wc, bc: LAYERNORM_FWD(x, w, b),
+            lambda x, w, b, wc, bc: LN.layernorm_plain(x, w, b),
+            lambda x, w, b, wc, bc, c=c: F.layer_norm(x, (c,), wc, bc, 1e-5),
+            sets, nbytes, 8 * rows * c, f32, dev_name)
 
     def sdpa_packed(qkv, heads=12):
         b, length, _ = qkv.shape

@@ -32,12 +32,32 @@
 //     features;
 //   * N is any length: a point is addressed as b * N + i, no padding.
 // The order of the atomic adds into S varies from run to run, so S and dw
-// agree with a sequential f32 sum to a few ulp, not bit for bit. Pass 2 is
-// one thread per point and moves 16 bytes per point (it reads the id, w and
-// s and writes dw) besides the per-cell tables: launch-sized.
+// agree with a sequential f32 sum to a few ulp, not bit for bit.
+//
+// Pass 2 moves 16 bytes a point (it reads the id, w and s and writes dw)
+// besides the per-cell tables: at B=16, N=8820 that is 2.3 MB, 0.69 us at
+// 3.35 TB/s, so the launch and one chain of latencies set its time, not the
+// bytes. It keeps that chain to one device-memory round trip:
+//   * the grid is (slices of a row, B): blockIdx.y is the batch row, so no
+//     division finds it;
+//   * a thread takes two consecutive points with one 8-byte load each of
+//     the ids, the weights and s, and writes their dw with one 8-byte store
+//     (four points a thread, with 16-byte accesses, measured slower on the
+//     H100: a quarter as many warps hide the arithmetic's latency worse);
+//     where a row starts at an odd point, or N is odd, its first or last
+//     point is taken alone (a scalar head and tail), and where cells, w, s
+//     or dw start off an 8-byte boundary the whole row is;
+//   * the block stages its row's cell max, 1 / denominator and S (num_cells
+//     of each, 2.3 KB at 196 cells) in shared memory with loads issued
+//     together with the point loads, so the lookups that depend on the id
+//     are shared-memory reads, not a second trip to device memory;
+//   * p = __expf(w - cmax) * (1 / denom): dw differs from the plain
+//     version's expf and divide by ~1e-6 of its largest value.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -147,28 +167,93 @@ grid_pool_bwd1_kernel(const T* __restrict__ g, const int* __restrict__ cells,
   }
 }
 
-// Pass 2: one thread per point.
-__global__ void __launch_bounds__(256)
+// Pass 2. Block (slice, b) covers points [2 * blockDim.x * slice, ...) of
+// row b's aligned middle; `vec` says whether cells, w, s and dw all start on
+// 8-byte boundaries.
+constexpr int kBwd2Threads = 128;
+constexpr int kBwd2Per = 2;  // points a thread takes
+
+// dw of one point from the staged tables: cmax, 1 / denom (0 for an empty
+// cell) and S of the row's cells
+__device__ __forceinline__ float bwd2_point(int c, float wi, float si,
+                                            const float* cmax,
+                                            const float* inv_den,
+                                            const float* S, int num_cells) {
+  if (c < 0 || c >= num_cells) return 0.f;
+  const float r = inv_den[c];
+  if (r == 0.f) return 0.f;
+  const float p = __expf(wi - cmax[c]) * r;
+  return p * (si - S[c]);
+}
+
+__global__ void __launch_bounds__(kBwd2Threads)
 grid_pool_bwd2_kernel(const int* __restrict__ cells,
                       const float* __restrict__ w,
                       const float* __restrict__ cmax,
                       const float* __restrict__ denom,
                       const float* __restrict__ S,
                       const float* __restrict__ s, float* __restrict__ dw,
-                      long long total, int n, int num_cells) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int b = (int)(i / n);
-  const int c = cells[i];
-  float out = 0.f;
-  if (c >= 0 && c < num_cells) {
-    const float den = denom[(size_t)b * kCellPad + c];
-    if (den > 0.f) {
-      const float p = expf(w[i] - cmax[(size_t)b * num_cells + c]) / den;
-      out = p * (s[i] - S[(size_t)b * kCellPad + c]);
+                      int n, int num_cells, int vec) {
+  __shared__ float sh_cmax[kCellPad], sh_inv_den[kCellPad], sh_S[kCellPad];
+  const int b = blockIdx.y;
+  const size_t row0 = (size_t)b * n;
+  // points of this row taken one by one before (head) and after (tail) the
+  // aligned middle, which a thread takes kBwd2Per at a time
+  int head = n, nvec = 0;
+  if (vec) {
+    head = (int)((kBwd2Per - row0 % kBwd2Per) % kBwd2Per);
+    if (head > n) head = n;
+    nvec = (n - head) / kBwd2Per;
+  }
+  const int tail_start = head + nvec * kBwd2Per;
+  const int n_scalar = head + (n - tail_start);
+
+  // the point loads first, then the tables: all in flight together
+  const int t = blockIdx.x * kBwd2Threads + threadIdx.x;
+  int2 ci = make_int2(-1, -1);
+  float2 wi = make_float2(0.f, 0.f), si = wi;
+  const bool has_vec = t < nvec;
+  if (has_vec) {
+    const size_t at = row0 + head + (size_t)t * kBwd2Per;
+    ci = *reinterpret_cast<const int2*>(cells + at);
+    wi = *reinterpret_cast<const float2*>(w + at);
+    si = *reinterpret_cast<const float2*>(s + at);
+  }
+  constexpr int kRounds = kCellPad / kBwd2Threads;
+  float tc[kRounds], td[kRounds], tS[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int k = threadIdx.x + r * kBwd2Threads;
+    if (k < num_cells) {
+      tc[r] = cmax[(size_t)b * num_cells + k];
+      td[r] = denom[(size_t)b * kCellPad + k];
+      tS[r] = S[(size_t)b * kCellPad + k];
     }
   }
-  dw[i] = out;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int k = threadIdx.x + r * kBwd2Threads;
+    if (k < num_cells) {
+      sh_cmax[k] = tc[r];
+      sh_inv_den[k] = td[r] > 0.f ? 1.f / td[r] : 0.f;
+      sh_S[k] = tS[r];
+    }
+  }
+  __syncthreads();
+
+  if (has_vec) {
+    const float2 out = make_float2(
+        bwd2_point(ci.x, wi.x, si.x, sh_cmax, sh_inv_den, sh_S, num_cells),
+        bwd2_point(ci.y, wi.y, si.y, sh_cmax, sh_inv_den, sh_S, num_cells));
+    *reinterpret_cast<float2*>(dw + row0 + head + (size_t)t * kBwd2Per) = out;
+  }
+  // the scalar head and tail: at most one point at each end of an aligned
+  // row; the whole row where an array is off an 8-byte boundary
+  for (int e = t; e < n_scalar; e += gridDim.x * kBwd2Threads) {
+    const size_t i = row0 + (e < head ? e : tail_start + (e - head));
+    dw[i] = bwd2_point(cells[i], w[i], s[i], sh_cmax, sh_inv_den, sh_S,
+                       num_cells);
+  }
 }
 
 template <typename T>
@@ -228,9 +313,15 @@ extern "C" int gridmm_grid_pool_bwd2(const int* cells, const float* w,
   if (num_cells < 1 || num_cells > kCellPad || b < 1 || n < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long total = (long long)b * n;
-  const unsigned blocks = (unsigned)((total + 255) / 256);
-  grid_pool_bwd2_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      cells, w, cmax, denom, S, s, dw, total, n, num_cells);
+  if (b > 65535) return (int)cudaErrorInvalidValue;  // grid's y extent
+  const int vec = ((reinterpret_cast<uintptr_t>(cells) |
+                    reinterpret_cast<uintptr_t>(w) |
+                    reinterpret_cast<uintptr_t>(s) |
+                    reinterpret_cast<uintptr_t>(dw)) & 7) == 0;
+  const int per_block = kBwd2Threads * kBwd2Per;
+  const dim3 grid((unsigned)((n + per_block - 1) / per_block), (unsigned)b);
+  grid_pool_bwd2_kernel<<<grid, kBwd2Threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      cells, w, cmax, denom, S, s, dw, n, num_cells, vec);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own into
 `gridmm_tpu_torch/build/lib<name>-<hash>.so` for sm_90a (Hopper), where
 <hash> covers the source, the shared headers (`csrc/*.cuh`) and the flags,
 so an edited source never loads a stale library. Builds happen at first use, never at import; `build_all`
-starts one nvcc per source, all at once.
+starts one nvcc per source, all at once. Every function takes the source
+directory, so that a timing script can load another tree's build of the same
+kernel beside this one's.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOADED: Dict[Path, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -36,16 +38,17 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
-    for header in sorted(SRC_DIR.glob("*.cuh")):
+def library_path(name: str, src_dir: Path = SRC_DIR) -> Path:
+    h = hashlib.sha256((src_dir / f"{name}.cu").read_bytes())
+    for header in sorted(src_dir.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_all(names: Iterable[str]) -> Dict[str, str]:
+def build_all(names: Iterable[str],
+              src_dir: Path = SRC_DIR) -> Dict[str, str]:
     """Compile every named source that has no current library, one nvcc
     process each, all started together. Returns {name: ptxas report}.
     Raises with the compiler's output if any build fails."""
@@ -53,11 +56,11 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
     nvcc = nvcc_path()
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, src_dir)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src_dir / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -74,20 +77,21 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
     return reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, building it if needed."""
-    lib = _LOADED.get(name)
+def load(name: str, src_dir: Path = SRC_DIR) -> ctypes.CDLL:
+    """The loaded library for <src_dir>/<name>.cu, building it if needed."""
+    key = Path(src_dir).resolve() / name
+    lib = _LOADED.get(key)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LOADED[name] = lib
+        build_all([name], src_dir)
+        lib = ctypes.CDLL(str(library_path(name, src_dir)))
+        _LOADED[key] = lib
     return lib
 
 
-def function(name: str, symbol: str, argtypes):
-    """The C function `symbol` of csrc/<name>.cu with its argument types
-    set; it returns a cudaError_t as an int."""
-    fn = getattr(load(name), symbol)
+def function(name: str, symbol: str, argtypes, src_dir: Path = SRC_DIR):
+    """The C function `symbol` of <src_dir>/<name>.cu with its argument
+    types set; it returns a cudaError_t as an int."""
+    fn = getattr(load(name, src_dir), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -152,15 +152,15 @@ class GridPoolBwd:
         self.name = name
         self.replaces = replaces
         self.launches = 0
-        self._symbol = symbol
-        self._argtypes = argtypes
+        self.symbol = symbol
+        self.argtypes = argtypes
         self._fn = None
 
     def launch(self, device, *args):
         """The bare launch on checked tensors; raises on a refused launch."""
         if self._fn is None:
-            self._fn = build.function(SOURCE_BWD, self._symbol,
-                                      self._argtypes)
+            self._fn = build.function(SOURCE_BWD, self.symbol,
+                                      self.argtypes)
         stream = torch.cuda.current_stream(device).cuda_stream
         with torch.cuda.device(device):
             err = self._fn(*args, stream)
@@ -193,6 +193,9 @@ def grid_pool_bwd(point_fts, cell_ids, weights, cmax, denom, cot):
     num_cells = cot.shape[1]
     b, n, d = _check_points("grid_pool_bwd", point_fts, cell_ids, weights,
                             num_cells)
+    if b > 65535:
+        raise ValueError(f"grid_pool_bwd: B={b} rows exceed the grid's "
+                         "65535 rows")
     dev = point_fts.device
     _check_f32("grid_pool_bwd", dev, cmax=(cmax, (b, num_cells)),
                denom=(denom, (b, CELL_PAD)), cot=(cot, (b, num_cells, d)))

@@ -24,6 +24,11 @@ class LayerNormFwd:
     name = "layernorm_fwd"
     source = "gridmm_tpu_torch/csrc/layernorm_fwd.cu"
     replaces = "gridmm_tpu/ops/pallas/layernorm.py:24"
+    symbol = "gridmm_layernorm_fwd"
+    # x, dtype code, scale, bias, y, rows, C, eps, stream
+    argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_float, ctypes.c_void_p]
 
     def __init__(self):
         self.launches = 0
@@ -31,10 +36,7 @@ class LayerNormFwd:
 
     def _function(self):
         if self._fn is None:
-            self._fn = build.function(SOURCE, "gridmm_layernorm_fwd", [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_void_p])
+            self._fn = build.function(SOURCE, self.symbol, self.argtypes)
         return self._fn
 
     def __call__(self, x, scale, bias, eps: float = 1e-5):

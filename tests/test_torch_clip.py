@@ -67,11 +67,12 @@ def test_config_fields_match_jax():
         TV.ClipVisionConfig(int8_matmuls=True)
 
 
-@pytest.mark.parametrize("c", [768, 64])
+@pytest.mark.parametrize("c", [768, 64, 17, 1500])
 def test_layernorm_matches_jax(c):
     """Both JAX formulations: flax nn.LayerNorm (fast variance, the default
-    ClipLayerNorm) and the Pallas kernel (centred variance; at C=64 its
-    wrapper takes the unfused fallback)."""
+    ClipLayerNorm) and the Pallas kernel (centred variance; off C % 128 == 0,
+    at C = 64, 17 and 1500, its wrapper takes the unfused fallback). 17 and
+    1500 are the widths at which the CUDA kernel runs its scalar bodies."""
     rng = np.random.default_rng(c)
     x = (rng.standard_normal((3, 50, c)) * 2.0 + 0.5).astype(np.float32)
     scale = rng.uniform(0.5, 1.5, c).astype(np.float32)

@@ -163,12 +163,14 @@ def _bwd_case(kind, dtype, b, n, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["random", "edges"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,n", [(4, 8820), (8, 8832)])
+@pytest.mark.parametrize("b,n", [(4, 8820), (8, 8832), (4, 8821), (3, 1001)])
 def test_grid_pool_bwd_kernels_match_plain(kind, dtype, b, n):
     """dg within 1e-5 x max|dg| (f32: one product each side) or one bf16 ulp
     of its magnitude (bf16: both round the same f32 product); s within 1e-5
     and S, dw within 1e-4 of their max (S adds with f32 atomics in a varying
-    order). N = 8820 is the stacked buffer's length, not a multiple of 512."""
+    order). N = 8820 is the stacked buffer's length, not a multiple of 512;
+    N = 8821 and 1001 are odd, so every other row starts off an 8-byte
+    boundary and pass 2 takes a scalar head and tail."""
     _require_card()
     from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
                                                      GRID_POOL_BWD2,
@@ -233,6 +235,28 @@ def test_grid_pool_function_on_card_matches_cpu(d):
 
 
 @pytest.mark.cuda
+def test_grid_pool_bwd2_on_arrays_off_8_byte_boundaries():
+    """Cell ids and weights that start 4 bytes past an 8-byte boundary:
+    pass 2 takes every point one by one; dw within 1e-4 of its max."""
+    _require_card()
+    from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_bwd
+    from gridmm_tpu_torch.ops.grid_pool import grid_pool_bwd_terms
+
+    g, cells, w, cmax, denom, cot = _bwd_case("edges", torch.float32, 4, 8820)
+    cells_buf = torch.empty(cells.numel() + 1, dtype=torch.int32,
+                            device="cuda")
+    w_buf = torch.empty(w.numel() + 1, device="cuda")
+    cells_off = cells_buf[1:].view_as(cells).copy_(cells)
+    w_off = w_buf[1:].view_as(w).copy_(w)
+    assert cells_off.data_ptr() % 8 and w_off.data_ptr() % 8
+    got = grid_pool_bwd(g, cells_off, w_off, cmax, denom, cot)
+    want = grid_pool_bwd_terms(g, cells, w, denom, cot)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[1], want[1], rtol=0,
+                               atol=1e-4 * want[1].abs().max().item())
+
+
+@pytest.mark.cuda
 def test_grid_pool_bwd_rejects_bad_input():
     _require_card()
     from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
@@ -261,12 +285,17 @@ def _ln_case(rows, c, dtype, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,c", [(9600, 768), (1000, 64), (37, 1500),
-                                    (5, 17)])
+@pytest.mark.parametrize("rows,c", [(9600, 768), (1000, 64), (2400, 64),
+                                    (37, 1500), (5, 17), (1001, 40),
+                                    (333, 520), (3, 8)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_layernorm_kernel_matches_plain(rows, c, dtype):
     """f32: within 1e-5 (summation order only); bf16: within one bf16 ulp
-    (2^-7 relative), since both round nearly the same f32 value."""
+    (2^-7 relative), since both round nearly the same f32 value. The widths
+    reach every body: the vector body with a whole warp a row (768, 520)
+    and with part of a warp (64, 40, 8); the scalar bodies where C is no
+    multiple of the vector width (17; 1500 in bf16) or wider than the
+    vector body holds (1500 in f32)."""
     _require_card()
     from gridmm_tpu_torch.ops.cuda.layernorm import LAYERNORM_FWD
     from gridmm_tpu_torch.ops.layernorm import layernorm_plain
@@ -281,6 +310,28 @@ def test_layernorm_kernel_matches_plain(rows, c, dtype):
     else:
         torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm_kernel_off_16_byte_boundary(dtype):
+    """An x that starts three elements past a 16-byte boundary runs the
+    scalar body; same tolerances as above."""
+    _require_card()
+    from gridmm_tpu_torch.ops.cuda.layernorm import LAYERNORM_FWD
+    from gridmm_tpu_torch.ops.layernorm import layernorm_plain
+
+    rows, c = 600, 768
+    x, scale, bias = _ln_case(rows, c, getattr(torch, dtype), seed=2)
+    buf = torch.empty(rows * c + 3, dtype=x.dtype, device="cuda")
+    x_off = buf[3:].view(rows, c).copy_(x)
+    assert x_off.data_ptr() % 16
+    got = LAYERNORM_FWD(x_off, scale, bias)
+    want = layernorm_plain(x, scale, bias)
+    torch.cuda.synchronize()
+    rtol = 1e-5 if dtype == "float32" else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -92,6 +92,48 @@ def test_pool_bwd_plain_matches_pallas_interpret_and_xla_vjp():
     assert got_dg.dtype == torch.float32 and got_dw.dtype == torch.float32
 
 
+@pytest.mark.parametrize("n", [1001, 2 * 588 + 1])
+def test_pool_bwd_plain_matches_pallas_interpret_at_ragged_n(n):
+    """N odd and no multiple of 512 (rows of the CUDA backward then start
+    off 8-byte boundaries): the plain backward within 1e-5 absolute of the
+    Pallas pair in interpret mode, which pads N to its chunk; s and S
+    within 1e-5 of their max of their definitions in f64."""
+    g, cells, w, cot = bwd_case(b=3, n=n, d=64, seed=n)
+    tg, tc, tw, tcot = to_torch((g, cells, w, cot))
+    _, _, denom = TP.grid_scatter_pool_raw(tg, tc, tw)
+    got_dg, got_dw, s, big_s = TP.grid_pool_bwd_terms(tg, tc, tw, denom, tcot)
+
+    jf, jc, jw, chunk = JP._chunk_and_pad_cap(
+        jnp.asarray(g), jnp.asarray(cells), jnp.asarray(w), 1024)
+    assert jf.shape[1] % chunk == 0 and jf.shape[1] > n
+    _, _, jdenom = pallas_grid_pool_raw(jf, jc, jw, chunk=chunk,
+                                        interpret=True)
+    k_dg, k_dw = pallas_grid_pool_bwd(jf, jc, jw, jdenom, jnp.asarray(cot),
+                                      chunk=chunk, interpret=True)
+    assert_close(got_dg, k_dg[:, :n], rtol=0, atol=1e-5)
+    assert_close(got_dw, k_dw[:, :n], rtol=0, atol=1e-5)
+
+    # s and S against their definitions, in f64
+    b = np.arange(3)[:, None]
+    valid = (cells >= 0) & (cells < 196)
+    idx = np.where(valid, cells, 0)
+    w64 = np.where(valid, w, -np.inf).astype(np.float64)
+    cmax = np.full((3, 196), -np.inf)
+    np.maximum.at(cmax, (np.broadcast_to(b, idx.shape), idx), w64)
+    e = np.where(valid, np.exp(np.where(valid, w64 - np.where(
+        valid, cmax[b, idx], 0.0), 0.0)), 0.0)
+    den = np.zeros((3, 196))
+    np.add.at(den, (np.broadcast_to(b, idx.shape), idx), e)
+    p = np.where(valid, e / np.where(valid, den[b, idx], 1.0), 0.0)
+    want_s = np.where(valid, (g.astype(np.float64) * cot[b, idx]).sum(-1),
+                      0.0)
+    want_big_s = np.zeros((3, 256))
+    np.add.at(want_big_s, (np.broadcast_to(b, idx.shape), idx), p * want_s)
+    assert_close(s, want_s, rtol=0, atol=1e-5 * np.abs(want_s).max())
+    assert_close(big_s, want_big_s, rtol=0,
+                 atol=1e-5 * np.abs(want_big_s).max())
+
+
 def test_pool_function_matches_autograd_of_plain_forward():
     """GridPoolFunction on the CPU (analytic backward) against autograd
     through the plain forward: within 1e-5 absolute."""
