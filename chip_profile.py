@@ -25,8 +25,8 @@ serving engine's point buffers with 15 steps, then:
 The encode's and the pipeline's tables are followed by LayerNorm's launches
 and device time per launch.
 
-With --ab, it only times LayerNorm (K3) and the pool backward's two passes
-(K5a, K5b) as built from this tree's csrc/ and from OTHER_TREE's (a checkout
+With --ab, it only times LayerNorm (K3), per-head attention (K4) and the
+pool backward's two passes (K5a, K5b) as built from this tree's csrc/ and from OTHER_TREE's (a checkout
 of another commit, for example the parent unpacked with `git archive`) in
 one process, on the same inputs, in turns (other, this, this, other), at the
 main paths' shapes, reading from device memory.
@@ -47,9 +47,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (PIPE_PANOS, SERVE_SLOTS, bwd_inputs, card,
-                        copies_for, cuda_ms, pipeline_inputs, pool_case,
-                        request_text, require, rotating_ms, step_row)
+from chip_smoke import (CLIP_BATCH, PIPE_PANOS, SERVE_SLOTS, VIEWS,
+                        attn_atol, bwd_inputs, card, copies_for, cuda_ms,
+                        pipeline_inputs, pool_case, request_text, require,
+                        rotating_ms, step_row)
 from gridmm_tpu_torch.config import r2r_config
 from gridmm_tpu_torch.data.preprocess import ClipFeatureExtractor
 from gridmm_tpu_torch.models.clip_vit import clip_b32
@@ -57,7 +58,9 @@ from gridmm_tpu_torch.pipeline import encode_and_pool
 from gridmm_tpu_torch.models.navigator import init_navigator
 from gridmm_tpu_torch.ops import geometry as G
 from gridmm_tpu_torch.ops import grid_pool as GP
+from gridmm_tpu_torch.ops import attention as ATT
 from gridmm_tpu_torch.ops.cuda import build
+from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_FWD
 from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
                                                  GRID_POOL_BWD2, SOURCE_BWD)
 from gridmm_tpu_torch.ops.cuda.layernorm import LAYERNORM_FWD
@@ -106,16 +109,25 @@ def summarize(prof, wall_s, per, label, out, top=15, watch=()):
     out.append(text)
 
 
+def attn_args(tensors, code, bh, length, hd):
+    """The C arguments of gridmm_attention_fwd but the stream."""
+    q, k, v, o = tensors
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), code, o.data_ptr(), bh,
+            length, hd, 1.0 / hd ** 0.5)
+
+
 def ab_kernels(other_root: Path, dev_name: str) -> dict:
-    """K3, K5a and K5b from this tree's csrc/ and from `other_root`'s, on the
+    """K3, K4, K5a and K5b from this tree's csrc/ and from `other_root`'s, on the
     same inputs, timed in turns (other, this, this, other). Both trees must
     export the same C entry points. Returns {case: {tree: [ms, ms]}}."""
     trees = {"other": other_root / "gridmm_tpu_torch" / "csrc",
              "this": build.SRC_DIR}
     fns = {}
     for tree, src in trees.items():
-        build.build_all(["layernorm_fwd", SOURCE_BWD], src)
+        build.build_all(["layernorm_fwd", SOURCE_BWD, "attention_fwd"], src)
         fns[tree] = {
+            "attn": build.function("attention_fwd", ATTENTION_FWD.symbol,
+                                   ATTENTION_FWD.argtypes, src),
             "ln": build.function("layernorm_fwd", LAYERNORM_FWD.symbol,
                                  LAYERNORM_FWD.argtypes, src),
             "bwd1": build.function(SOURCE_BWD, GRID_POOL_BWD1.symbol,
@@ -169,6 +181,47 @@ def ab_kernels(other_root: Path, dev_name: str) -> dict:
             lambda x, w, b, y: y.copy_(x), sets)
         print(f"    copy_ of the same bytes: {result[case]['copy_ms']:.5f} ms")
         del sets, ys
+
+    # K4 at the tiny tower's, B/16's and ViT-H/14's shapes, each call on its
+    # own q, k, v and o; a shape that a tree's kernel refuses is not timed
+    # for that tree
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for bh, length, hd, dtype in (
+            (4 * VIEWS * 4, 50, 16, torch.float32),
+            (CLIP_BATCH * VIEWS * 12, 197, 64, torch.bfloat16),
+            (CLIP_BATCH * VIEWS * 16, 257, 80, torch.bfloat16)):
+        code = 0 if dtype == torch.float32 else 1
+        size = 2 if dtype == torch.bfloat16 else 4
+        sets = [tuple(torch.randn((bh, length, hd), generator=gen,
+                                  device="cuda").to(dtype) for _ in range(4))
+                for _ in range(copies_for(4 * bh * length * hd * size))]
+
+        def attn(tree, *tensors):
+            run(fns[tree]["attn"], *attn_args(tensors, code, bh, length, hd))
+
+        q, k, v, o = sets[0]
+        want = ATT.attention_plain(q, k, v).float()
+        takes = {}
+        for tree in trees:
+            o.zero_()
+            takes[tree] = fns[tree]["attn"](
+                *attn_args(sets[0], code, bh, length, hd), stream) == 0
+            if takes[tree]:
+                torch.testing.assert_close(o.float(), want, rtol=0.0,
+                                           atol=attn_atol(dtype, v))
+        require(takes["this"], f"attention_fwd refused hd {hd}")
+        case = f"attention_fwd ({bh}, {length}, {hd}) {str(dtype)[6:]}"
+        if takes["other"]:
+            turns(case, lambda tree: rotating_ms(
+                lambda *a: attn(tree, *a), sets))
+        else:     # the parent's K4 took hd 16, 32, 64 and 128 only
+            result[case] = {"other": None, "this": [
+                rotating_ms(lambda *a: attn("this", *a), sets)
+                for _ in range(2)]}
+            print(f"  {case}: other refuses it, this "
+                  f"{result[case]['this'][0]:.5f} / "
+                  f"{result[case]['this'][1]:.5f} ms [{dev_name}]")
+        del sets, q, k, v, o, want
 
     # the pool backward at the train shape: B=16, N=8820, D=768 f32
     g, cells, w = pool_case("random", 16, torch.float32, seed=6, n=8820)
@@ -225,7 +278,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--ab", type=Path, default=None, metavar="OTHER_TREE",
-                    help="only time K3, K5a and K5b against OTHER_TREE's "
+                    help="only time K3, K4, K5a and K5b against OTHER_TREE's "
                          "sources")
     args = ap.parse_args()
     if not torch.cuda.is_available():

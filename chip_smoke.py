@@ -16,7 +16,8 @@ Phases, in order (any failure raises and the exit code is not 0):
       vector body at widths a warp or part of one takes, the scalar bodies
       at odd widths and on an x off a 16-byte boundary), packed-qkv
       attention (K2: bf16 on the tensor cores, also at L = 1, 17 and 64; f32
-      on the CUDA cores), per-head attention (K4) and the two passes of the
+      on the CUDA cores), per-head attention (K4: hd 1 to 256 with L = 1,
+      17, 50 and 197, and hd 80 at L = 257) and the two passes of the
       pool's backward (K5a, K5b, also at an odd N and on ids off an 8-byte
       boundary);
   (d) the main paths, each driven with every launch count set to 0 just
@@ -33,6 +34,9 @@ Phases, in order (any failure raises and the exit code is not 0):
         plain ops; the same in f32 for 3 iterations;
       - the --tiny preprocess tower (head_dim 16: the per-head kernel) on the
         card against the same tower on the CPU;
+      - a tower at ViT-H/14's widths (1280 wide, 16 heads: head_dim 80, 257
+        tokens; depth cut to 2 layers) through the extractor over 2
+        panoramas: f32 card against CPU, bf16 kernels against plain ops;
       - training at full R2R width: train_navigator over the synthetic
         world (one teacher and one sample iteration, with evaluation), then
         on freshly seeded weights three make_train_step updates on one
@@ -43,8 +47,10 @@ Phases, in order (any failure raises and the exit code is not 0):
         with the same on the CPU;
   (e) times with CUDA events (kernel, plain version, library yardstick,
       bound; the pool at the serving, pipeline and train shapes; LayerNorm
-      at the tower's and the tiny tower's widths in both types; the launch
-      floor beside the pool backward's pass 2), encode
+      at the tower's and the tiny tower's widths in both types; K4 at the
+      tiny tower's, B/16's and ViT-H/14's shapes beside SDPA on 4-D inputs
+      with its backend named; the launch floor beside the pool backward's
+      pass 2), encode
       and pipeline views/s, the pipeline's peak device memory,
       the serving step time, and the train update's time and peak memory,
       each beside the card;
@@ -119,6 +125,9 @@ BF16_REL_TOL = 2.0 ** -5
 # f32 tower or pipeline, kernels vs plain ops (TF32 off): summation order
 # and the online softmax only
 F32_TOL = 1e-4
+# f32 tower, card vs CPU (TF32 off), as the CPU parity tests hold towers
+TOWER_F32_TOL = 2e-4
+VIT_H_LAYERS = 2               # ViT-H/14 widths, depth cut from 32
 POOL_B, POOL_N, POOL_D = 8, 8832, 768
 SERVE_SLOTS, FIRST_STEPS, LATER_STEPS = 4, 15, 3
 # fused logits, kernel pool vs plain pool through the full-width navigator
@@ -698,12 +707,20 @@ def attn_atol(dtype, v):
     return 2.0 ** -6 * v.float().abs().max().item()
 
 
+# K4's (hd, L) cases: every padded width of both bodies (hd 1 to 256, 20 and
+# 200 off a 16-byte row) at the edges of the 16-key and 64-query tiles, and
+# ViT-H/14's (80, 257)
+ATTN_CASES = tuple((hd, length)
+                   for hd in (1, 16, 20, 48, 64, 80, 128, 200, 256)
+                   for length in (1, 17, 50, 197)) + ((80, 257),)
+
+
 def check_attention_kernels(report):
     """(c) K2 at clip_b32 (192, 50, 2304) and B/16 (32, 197, 2304), and in
     bf16 (the tensor-core body) at L = 1, 17 and 64, the edges of its
-    16-key and 64-query tiles; K4 at hd 16, 64 and 128 with L = 50 and 197;
-    both dtypes. Inputs at scale 2.0 give peaked softmaxes, so a fragment
-    read from the wrong lane shows."""
+    16-key and 64-query tiles; K4 on 768 slices at ATTN_CASES; both dtypes.
+    Inputs at scale 2.0 give peaked softmaxes, so a fragment read from the
+    wrong lane shows."""
     rng = np.random.default_rng(12)
     worst = {"attention_qkv_fwd": 0.0, "attention_fwd": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
@@ -726,23 +743,26 @@ def check_attention_kernels(report):
             print(f"  attention_qkv_fwd ({b}, {length}, 2304) "
                   f"{str(dtype)[6:]:8s}: max|diff| {err:.3e} "
                   f"(atol {atol:.3e})")
-        for hd in (16, 64, 128):
-            for length in (50, 197):
-                q, k, v = (torch.from_numpy((rng.standard_normal(
-                    (768, length, hd)) * 2.0).astype(np.float32)).to(
-                        "cuda", dtype) for _ in range(3))
-                got = ATTENTION_FWD(q, k, v)
-                want = ATT.attention_plain(q, k, v)
-                torch.cuda.synchronize()
-                atol = attn_atol(dtype, v)
-                torch.testing.assert_close(
-                    got.float(), want.float(),
-                    rtol=2e-5 if atol == 2e-5 else 0.0, atol=atol)
-                err = (got.float() - want.float()).abs().max().item()
-                worst["attention_fwd"] = max(worst["attention_fwd"], err)
-                print(f"  attention_fwd (768, {length}, {hd}) "
-                      f"{str(dtype)[6:]:8s}: max|diff| {err:.3e} "
-                      f"(atol {atol:.3e})")
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        for hd, length in ATTN_CASES:
+            q, k, v = ((2.0 * torch.randn((768, length, hd), generator=gen,
+                                          device="cuda")).to(dtype)
+                       for _ in range(3))
+            got = ATTENTION_FWD(q, k, v)
+            want = ATT.attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape and got.dtype == dtype,
+                    "attention_fwd: output shape or type")
+            atol = attn_atol(dtype, v)
+            torch.testing.assert_close(
+                got.float(), want.float(),
+                rtol=2e-5 if atol == 2e-5 else 0.0, atol=atol)
+            err = (got.float() - want.float()).abs().max().item()
+            worst["attention_fwd"] = max(worst["attention_fwd"], err)
+            print(f"  attention_fwd (768, {length}, {hd}) "
+                  f"{str(dtype)[6:]:8s}: max|diff| {err:.3e} "
+                  f"(atol {atol:.3e})")
+            del q, k, v, got, want
     for name, err in worst.items():
         report[name]["max_abs_err"] = err
 
@@ -985,6 +1005,73 @@ def tiny_tower_path(report):
     report["tiny_tower"] = {"launches": launches,
                             "card_vs_cpu_max_abs_diff": err}
     return launches["attention_fwd"]
+
+
+def vit_h14_config(dtype):
+    """ViT-H/14's widths (OpenCLIP ViT-H-14 vision tower: width 1280, 16
+    heads, so head_dim 80, patch 14 at 224 px: 257 tokens), depth cut from
+    32 layers to 2."""
+    return ClipVisionConfig(input_resolution=224, patch_size=14, width=1280,
+                            layers=VIT_H_LAYERS, heads=16,
+                            compute_dtype=dtype)
+
+
+def vit_h14_tower_path(report):
+    """(d) a tower at ViT-H/14's widths (head_dim 80: the per-head kernel
+    at 257 tokens) through the extractor over 2 panoramas: f32 on the card
+    against the same tower on the CPU within TOWER_F32_TOL, then bf16 on the
+    card, kernels against plain ops, within BF16_REL_TOL. K4 launches once
+    per layer and forward, K2 never."""
+    cfg = vit_h14_config("float32")
+    models = {d: init_clip_vision(cfg, seed=6, device=d)
+              for d in ("cuda", "cpu")}
+    exs = {d: ClipFeatureExtractor(cfg, models[d], batch_panos=2, device=d)
+           for d in models}
+    torch.cuda.synchronize()
+    reset_counts()
+    got = stack_tokens(run_extractor(exs["cuda"], 2, seed=3))
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"  ViT-H/14 widths (1280 wide, 16 heads, hd 80, 257 tokens, "
+          f"depth cut to {VIT_H_LAYERS}), f32, 2 panoramas: launches "
+          f"{launches}")
+    require(launches["attention_fwd"] == VIT_H_LAYERS,
+            f"attention_fwd launched {launches['attention_fwd']} times in "
+            f"one {VIT_H_LAYERS}-layer forward")
+    require(launches["attention_qkv_fwd"] == 0, "hd 80 took the qkv kernel")
+    want = stack_tokens(run_extractor(exs["cpu"], 2, seed=3))
+    require(tuple(got.shape) == (2, VIEWS, 257, 1280)
+            and torch.isfinite(got).all().item(), f"tokens {got.shape}")
+    torch.testing.assert_close(got, want, rtol=TOWER_F32_TOL,
+                               atol=TOWER_F32_TOL)
+    err_f32 = (got - want).abs().max().item()
+    print(f"  tokens, card (kernels) vs CPU (plain), f32: max|diff| "
+          f"{err_f32:.3e} (tolerance {TOWER_F32_TOL})")
+    del models, exs, got, want
+
+    cfg16 = vit_h14_config("bfloat16")
+    ex16 = ClipFeatureExtractor(cfg16, batch_panos=2, device="cuda", seed=6)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = stack_tokens(run_extractor(ex16, 2, seed=3))
+    torch.cuda.synchronize()
+    launches16 = counts()
+    require(launches16["attention_fwd"] == VIT_H_LAYERS
+            and launches16["attention_qkv_fwd"] == 0,
+            f"bf16 launches {launches16}")
+    with plain_ops():
+        plain = stack_tokens(run_extractor(ex16, 2, seed=3))
+    err_bf16 = rel_err(got, plain)
+    print(f"  tokens, kernels vs plain ops, bf16: relative error "
+          f"{err_bf16:.3e} (bound {BF16_REL_TOL:.3e}); launches {launches16}")
+    require(torch.isfinite(got).all().item() and err_bf16 <= BF16_REL_TOL,
+            "bf16 ViT-H/14-width tokens differ from plain ops")
+    report["vit_h14_tower"] = {
+        "layers": VIT_H_LAYERS, "reduced": "depth 32 -> 2 layers",
+        "launches_f32": launches, "launches_bf16": launches16,
+        "f32_card_vs_cpu_max_abs_diff": err_f32,
+        "bf16_rel_err_vs_plain": err_bf16}
+    return launches16["attention_fwd"]
 
 
 # ------------------------------------------------ (d) the training path
@@ -1345,8 +1432,9 @@ def time_kernel(label, kernel, call, plain, library, arg_sets, nbytes, ops,
 
 def time_encoder_kernels(dev_name):
     """(e) K3 at the tower's LayerNorm shape, K2 at clip_b32 and at B/16,
-    K4 at the tiny tower's shape and at B/16 width; the yardsticks are
-    F.layer_norm and F.scaled_dot_product_attention on the split heads."""
+    K4 at the tiny tower's shape, at B/16 width and at ViT-H/14's; the
+    yardsticks are F.layer_norm and F.scaled_dot_product_attention on 4-D
+    views of the split heads."""
     out = {}
     rng = np.random.default_rng(21)
 
@@ -1393,19 +1481,51 @@ def time_encoder_kernels(dev_name):
             lambda x: ATT.attention_qkv_plain(x, 12), sdpa_packed, sets,
             nbytes, 4 * b * 12 * length * length * 64, bf16, dev_name)
 
+    # K4 at the tiny tower's shape, at B/16 width and at ViT-H/14's widths
+    # (192 views x 16 heads); SDPA on 4-D (1, BH, L, hd) views, with its
+    # backend pinned (f32: memory-efficient; bf16: flash)
     for bh, length, hd, dtype, key in (
             (4 * VIEWS * 4, 50, 16, f32, "attention_fwd"),
-            (CLIP_BATCH * VIEWS * 12, 197, 64, bf16, "attention_fwd_p16")):
+            (CLIP_BATCH * VIEWS * 12, 197, 64, bf16, "attention_fwd_p16"),
+            (CLIP_BATCH * VIEWS * 16, 257, 80, bf16, "attention_fwd_h14")):
         size = 2 if dtype == bf16 else 4
         nbytes = 4 * bh * length * hd * size
         sets = [tuple(cuda((bh, length, hd), dtype) for _ in range(3))
                 for _ in range(copies_for(nbytes))]
+        sdpa, backend = sdpa_4d(*sets[0])
         out[key] = time_kernel(
             f"({bh}, {length}, {hd}) {str(dtype)[6:]}", ATTENTION_FWD,
-            ATTENTION_FWD, ATT.attention_plain,
-            F.scaled_dot_product_attention, sets, nbytes,
+            ATTENTION_FWD, ATT.attention_plain, sdpa, sets, nbytes,
             4 * bh * length * length * hd, dtype, dev_name)
+        out[key]["library"] = f"F.scaled_dot_product_attention, {backend}"
+        print(f"    library: SDPA on (1, BH, L, hd) views, {backend} backend")
     return out
+
+
+def sdpa_4d(q, k, v):
+    """F.scaled_dot_product_attention on (1, BH, L, hd) views of (BH, L, hd)
+    tensors (the fused backends take 4-D inputs only), pinned to the first
+    backend that takes them: flash, memory-efficient, cuDNN, math. Returns
+    (call, backend name)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(q, k, v, backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q[None], k[None],
+                                                      v[None])[0]
+        try:
+            got = call(q, k, v)
+        except RuntimeError:
+            continue
+        torch.testing.assert_close(got.float(),
+                                   ATT.attention_plain(q, k, v).float(),
+                                   rtol=0.0, atol=attn_atol(q.dtype, v)
+                                   if q.dtype == torch.bfloat16 else 1e-2)
+        return call, backend.name
+    raise RuntimeError("no SDPA backend takes these inputs")
 
 
 def time_encode_and_pipeline(ex, model, cfg, dev_name):
@@ -1491,7 +1611,12 @@ def main() -> int:
           "width")
     ex = extractor_path(report)
     clip_model, pipe_cfg = pipeline_path(report)
-    report["attention_fwd"]["launches"] = tiny_tower_path(report)
+    # K4's launches: the tiny tower's and the ViT-H/14-width tower's, each
+    # counted from 0 over its own run
+    print("(d) per-head attention paths: the --tiny tower and a tower at "
+          "ViT-H/14 widths")
+    report["attention_fwd"]["launches"] = (tiny_tower_path(report)
+                                           + vit_h14_tower_path(report))
     print("(d) main path: training, r2r_config() width")
     train_state, train_step, train_batch, train_cfg = training_path(report)
     report["tiny_update_cpu_vs_card_worst_grad_ratio"] = \

@@ -4,15 +4,13 @@
     (gridmm_tpu/ops/pallas/attention_qkv.py:37): packed (B, L, 3W) qkv,
     head_dim 64, context (B, L, W);
   * `ATTENTION_FWD` (csrc/attention_fwd.cu) replaces `_attn_kernel`
-    (gridmm_tpu/ops/pallas/attention.py:26): (BH, L, hd) q, k, v with hd in
-    {16, 32, 64, 128}.
+    (gridmm_tpu/ops/pallas/attention.py:26): (BH, L, hd) q, k, v with any
+    hd from 1 to 256, padded on chip.
 
 Both keep K and V of one head in shared memory, so L is capped by the
-232,448 bytes a block may use: 2 * L * hd * itemsize, and for bf16 packed
-qkv, which runs on the tensor cores (csrc/attention_qkv_mma.cuh), a 64-row
-Q tile besides K and V, keys padded to a multiple of 16 and rows to 144
-bytes. The wrappers raise above it and on anything else the kernels do not
-take. Each counts its launches in `.launches`.
+232,448 bytes a block may use (`_smem_bytes` mirrors each body's layout).
+The wrappers raise above it and on anything else the kernels do not take.
+Each counts its launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -26,7 +24,7 @@ from gridmm_tpu_torch.ops.cuda import build
 
 MAX_SMEM = 232448
 QKV_HEAD_DIM = 64
-HEAD_DIMS = (16, 32, 64, 128)
+MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -48,11 +46,34 @@ def _check_common(name, tensors):
     return _DTYPE_CODE[t0.dtype]
 
 
+def _smem_bytes(length, hd, dtype, packed=False):
+    """Shared memory of the smallest launch the kernel body makes for this
+    shape (csrc/attention_qkv_mma.cuh, attention_core.cuh,
+    attention_head_mma.cuh, attention_head_f32.cuh)."""
+    lp16 = -(-length // 16) * 16
+    if packed:
+        if dtype == torch.bfloat16:      # 64-row Q tile, K, V; 144-byte rows
+            return (2 * lp16 + 64) * (QKV_HEAD_DIM + 8) * 2
+        return 2 * length * QKV_HEAD_DIM * 4
+    if dtype == torch.bfloat16:
+        # hd padded to 16, or above 128 to 32, where a work item does half
+        # the output columns and four warps stage 16-row Q tiles; one stage
+        # of K and V; rows padded by 8 elements
+        if hd <= 128:
+            hdp = -(-hd // 16) * 16
+            return lp16 * 2 * (hdp + 8) * 2
+        hdp = -(-hd // 32) * 32
+        return (4 * 16 * (hdp + 8) + lp16 * (hdp + 8 + hdp // 2 + 8)) * 2
+    # f32: hd padded to 16 or to 32; at the least one warp's 4 query and
+    # score rows and K and V of 32 keys (the whole slice below 32), rows
+    # padded by 4
+    hdp = 16 if hd <= 16 else -(-hd // 32) * 32
+    return (4 * (hdp + -(-length // 32) * 32)
+            + 2 * min(length, 32) * (hdp + 4)) * 4
+
+
 def _check_len(name, length, hd, dtype, packed=False):
-    if packed and dtype == torch.bfloat16:
-        smem = (2 * (-(-length // 16) * 16) + 64) * (QKV_HEAD_DIM + 8) * 2
-    else:
-        smem = 2 * length * hd * torch.tensor([], dtype=dtype).element_size()
+    smem = _smem_bytes(length, hd, dtype, packed)
     if smem > MAX_SMEM:
         raise ValueError(f"{name}: L={length} at head_dim {hd} needs {smem} "
                          f"bytes of shared memory, more than {MAX_SMEM}")
@@ -111,6 +132,11 @@ class AttentionFwd:
     name = "attention_fwd"
     source = "gridmm_tpu_torch/csrc/attention_fwd.cu"
     replaces = "gridmm_tpu/ops/pallas/attention.py:26"
+    symbol = "gridmm_attention_fwd"
+    # q, k, v, dtype code, o, BH, L, hd, scale, stream
+    argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 
     def __init__(self):
         self.launches = 0
@@ -118,10 +144,8 @@ class AttentionFwd:
 
     def _function(self):
         if self._fn is None:
-            self._fn = build.function("attention_fwd", "gridmm_attention_fwd", [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+            self._fn = build.function("attention_fwd", self.symbol,
+                                      self.argtypes)
         return self._fn
 
     def __call__(self, q, k, v):
@@ -131,8 +155,9 @@ class AttentionFwd:
                              f"{tuple(q.shape)}, {tuple(k.shape)}, "
                              f"{tuple(v.shape)}")
         bh, length, hd = q.shape
-        if hd not in HEAD_DIMS:
-            raise ValueError(f"{self.name}: head_dim {hd} not in {HEAD_DIMS}")
+        if not 1 <= hd <= MAX_HEAD_DIM:
+            raise ValueError(f"{self.name}: head_dim {hd} not in "
+                             f"[1, {MAX_HEAD_DIM}]")
         code = _check_common(self.name, [q, k, v])
         _check_len(self.name, length, hd, q.dtype)
         if bh >= 2 ** 31:

@@ -132,7 +132,7 @@ def test_attention_qkv_plain_matches_jax_at_tile_edges(b, l, heads):
         assert_close(got, qkv[..., 2 * heads * 64:], rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("hd", [1, 16, 20, 48, 64, 80, 128, 200])
 def test_attention_matches_jax(hd):
     rng = np.random.default_rng(hd)
     q, k, v = (rng.standard_normal((6, 33, hd)).astype(np.float32)
@@ -158,6 +158,11 @@ TOWERS = {
     # head_dim 16: the per-head kernel (the --tiny preprocess tower's shape)
     "hd16": (JV.ClipVisionConfig(input_resolution=56, patch_size=8,
                                  width=64, layers=2, heads=4,
+                                 compute_dtype="float32"),
+             dict(use_pallas_attention=True, use_pallas_ln=True)),
+    # head_dim 80: the per-head kernel at ViT-H/14's head width
+    "hd80": (JV.ClipVisionConfig(input_resolution=56, patch_size=8,
+                                 width=160, layers=2, heads=2,
                                  compute_dtype="float32"),
              dict(use_pallas_attention=True, use_pallas_ln=True)),
 }

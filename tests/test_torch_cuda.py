@@ -389,19 +389,51 @@ def test_attention_qkv_kernel_matches_plain(b, l, heads, dtype):
                                **_attn_tol(dt, qkv[..., 2 * heads * 64:]))
 
 
+# K4's cases: every padded width of both bodies and the edges of the 16-key
+# and 64-query tiles (L = 1, 17, 50, 197), and ViT-H/14's (257, 80)
+ATTN_CASES = [(hd, l) for hd in (1, 16, 20, 48, 64, 80, 128, 200, 256)
+              for l in (1, 17, 50, 197)] + [(80, 257)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
-@pytest.mark.parametrize("l", [50, 197])
+@pytest.mark.parametrize("hd,l", ATTN_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernel_matches_plain(hd, l, dtype):
+    """Inputs at scale 2.0 give peaked softmaxes, so a fragment read from
+    the wrong lane shows."""
     _require_card()
     from gridmm_tpu_torch.ops.attention import attention_plain
     from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_FWD
 
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(hd + l)
-    q, k, v = (torch.from_numpy(rng.standard_normal((96, l, hd)).astype(
+    q, k, v = (torch.from_numpy(rng.standard_normal((24, l, hd)).astype(
         np.float32) * 2.0).to("cuda", dt) for _ in range(3))
+    before = ATTENTION_FWD.launches
+    got = ATTENTION_FWD(q, k, v)
+    want = attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert ATTENTION_FWD.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dt
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dt, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,l,hd", [(3000, 17, 20), (3000, 50, 64),
+                                     (1000, 197, 200)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernel_many_slices(bh, l, hd, dtype):
+    """More slices than blocks in flight: a bf16 block walks several work
+    items (with the next one's K and V staged behind at L = 17 and 50), an
+    f32 block several slices at L = 17."""
+    _require_card()
+    from gridmm_tpu_torch.ops.attention import attention_plain
+    from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_FWD
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(bh + l)
+    q, k, v = ((2.0 * torch.randn((bh, l, hd), generator=gen,
+                                  device="cuda")).to(dt) for _ in range(3))
     got = ATTENTION_FWD(q, k, v)
     want = attention_plain(q, k, v)
     torch.cuda.synchronize()
@@ -419,7 +451,7 @@ def test_attention_dispatch_by_head_dim():
                                                      ATTENTION_QKV_FWD)
 
     rng = np.random.default_rng(3)
-    for heads, hd in ((4, 64), (4, 16)):
+    for heads, hd in ((4, 64), (4, 16), (2, 80)):
         qkv = torch.from_numpy(rng.standard_normal(
             (6, 50, 3 * heads * hd)).astype(np.float32)).cuda()
         before = (ATTENTION_QKV_FWD.launches, ATTENTION_FWD.launches)
@@ -452,11 +484,16 @@ def test_attention_kernels_count_launches_and_reject_bad_input():
         ATTENTION_QKV_FWD(qkv.transpose(0, 1), 4)
     with pytest.raises(ValueError):               # K and V overflow smem
         ATTENTION_QKV_FWD(torch.zeros((1, 1000, 3 * 64), device="cuda"), 1)
-    with pytest.raises(ValueError):               # hd 48 unsupported
-        ATTENTION_FWD(*(torch.zeros((8, 50, 48), device="cuda"),) * 3)
+    with pytest.raises(ValueError):               # hd above 256
+        ATTENTION_FWD(*(torch.zeros((8, 50, 257), device="cuda"),) * 3)
     with pytest.raises(ValueError):               # shapes differ
         ATTENTION_FWD(q, q[:4], q)
     with pytest.raises(ValueError):
         ATTENTION_FWD(q.cpu(), q.cpu(), q.cpu())
     assert (ATTENTION_QKV_FWD.launches, ATTENTION_FWD.launches) == (
         before[0] + 1, before[1] + 1)
+    for hd in (48, 80):                           # any hd up to 256
+        x = torch.zeros((8, 50, hd), device="cuda")
+        ATTENTION_FWD(x, x, x)
+    assert (ATTENTION_QKV_FWD.launches, ATTENTION_FWD.launches) == (
+        before[0] + 1, before[1] + 3)
