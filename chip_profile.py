@@ -5,13 +5,17 @@ on the card (gridmm_tpu_torch).
     python3 chip_profile.py [--steps 5]
     python3 chip_profile.py --ab OTHER_TREE
 
-Builds the full-width R2R navigator (seeded random weights), fills a 4-slot
-serving engine's point buffers with 15 steps, then:
+Builds the full-width R2R navigator (seeded random weights) and, for an
+eager 4-slot serving engine and then one whose step is a CUDA graph, fills
+the point buffers with 15 steps, then:
 
   * times 10 more steps with the host clock (synchronised);
   * traces `--steps` steps with torch.profiler and prints the device-busy
-    share of the window, kernel launches per step and the top device-time
-    operators;
+    share of the window, kernel launches per step, the top device-time
+    operators and K1's launches per step;
+  * runs one eager step of a `create` engine and of a `from_bundle` engine
+    exported from the same weights, and prints the device kernels whose
+    launch counts differ between the two and how far their logits part;
   * traces 20 calls of the dispatching grid pool at the same shapes and
     prints each operator's device and host time;
   * builds the clip_b32 tower (bf16, seeded random weights), fills a
@@ -65,6 +69,8 @@ from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
                                                  GRID_POOL_BWD2, SOURCE_BWD)
 from gridmm_tpu_torch.ops.cuda.layernorm import LAYERNORM_FWD
 from gridmm_tpu_torch.serve.engine import NavServingEngine
+from gridmm_tpu_torch.utils.export import (export_navigator_serving,
+                                           save_serving_bundle)
 from gridmm_tpu_torch.train.step import create_train_state, make_train_step
 from gridmm_tpu_torch.train.synthetic import synthetic_trajectory_batch
 
@@ -104,6 +110,58 @@ def summarize(prof, wall_s, per, label, out, top=15, watch=()):
                      f"{us / max(n, 1):.3f} us device time per launch, "
                      f"{100 * us / max(busy_us, 1e-9):.1f}% of the device "
                      f"time")
+    text = "\n".join(lines)
+    print(text)
+    out.append(text)
+
+
+def kernel_diff(model, cfg, dev_name, out):
+    """One eager step of a `create` engine and of a `from_bundle` engine
+    (the bundle exported from the same weights, chiprun_out/profile_bundle)
+    on the same buffers and rows: the device kernels whose launch count
+    differs between the two, which is where their logits may part."""
+    bundle = ROOT / "chiprun_out" / "profile_bundle"
+    save_serving_bundle(
+        export_navigator_serving(model, cfg, model.state_dict(),
+                                 batch=SERVE_SLOTS, device="cuda"),
+        str(bundle), cfg=cfg, extra_manifest={"batch": SERVE_SLOTS})
+    names = {}
+    logits = {}
+    for label, make in (
+            ("create", lambda: NavServingEngine.create(
+                model, cfg, SERVE_SLOTS, cuda_graph=False)),
+            ("from_bundle", lambda: NavServingEngine.from_bundle(
+                str(bundle), cfg, dict(model.state_dict()), SERVE_SLOTS,
+                cuda_graph=False))):
+        eng = make()
+        rng = np.random.default_rng(0)
+        for r in range(SERVE_SLOTS):
+            eng.submit(r, *request_text(cfg, rng))
+        eng.admit()
+        for t in range(3):
+            eng.step({s: step_row(cfg, rng, t) for s in range(SERVE_SLOTS)})
+        rows = {s: step_row(cfg, rng, 3) for s in range(SERVE_SLOTS)}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = eng.step(rows)
+            torch.cuda.synchronize()
+        logits[label] = res.fused_logits.cpu()
+        names[label] = {e.key: e.count for e in prof.key_averages()
+                        if "CUDA" in str(e.device_type)}
+    for p in bundle.glob("*.pt2"):
+        p.unlink()
+    a, b = logits["create"], logits["from_bundle"]
+    fin = torch.isfinite(a)
+    lines = [f"== eager step, create vs from_bundle (same weights, 4 steps "
+             f"in): fused logits max|diff| "
+             f"{(a[fin] - b[fin]).abs().max().item():.3e}, equal bits "
+             f"{torch.equal(a, b)}; kernels whose launches differ "
+             f"(create, from_bundle) [{dev_name}]:"]
+    for key in sorted(set(names["create"]) | set(names["from_bundle"])):
+        n_a, n_b = names["create"].get(key, 0), names["from_bundle"].get(
+            key, 0)
+        if n_a != n_b:
+            lines.append(f"   {n_a:4d} {n_b:4d}  {key[:110]}")
     text = "\n".join(lines)
     print(text)
     out.append(text)
@@ -297,37 +355,44 @@ def main() -> int:
             indent=1))
         return 0
     cfg = r2r_config()
-    rng = np.random.default_rng(0)
     model = init_navigator(cfg.model, seed=0, device="cuda")
-    eng = NavServingEngine.create(model, cfg, SERVE_SLOTS)
-    for r in range(SERVE_SLOTS):
-        eng.submit(r, *request_text(cfg, rng))
-    eng.admit()
-    for t in range(15):
-        eng.step({s: step_row(cfg, rng, t) for s in range(SERVE_SLOTS)})
-    rows = {s: step_row(cfg, rng, 15) for s in range(SERVE_SLOTS)}
-    torch.cuda.synchronize()
     out = [f"card: {dev_name}"]
-
-    times = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        eng.step(rows)
+    for label, graphed in (("eager", False), ("CUDA-graphed", True)):
+        eng = NavServingEngine.create(model, cfg, SERVE_SLOTS,
+                                      cuda_graph=graphed)
+        rng = np.random.default_rng(0)
+        for r in range(SERVE_SLOTS):
+            eng.submit(r, *request_text(cfg, rng))
+        eng.admit()
+        for t in range(15):
+            eng.step({s: step_row(cfg, rng, t) for s in range(SERVE_SLOTS)})
+        rows = {s: step_row(cfg, rng, 15) for s in range(SERVE_SLOTS)}
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    line = (f"serving step, {SERVE_SLOTS} slots, full buffer: median "
-            f"{np.median(times):.3f} ms over 10 steps [{dev_name}]")
-    print(line)
-    out.append(line)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
             eng.step(rows)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    summarize(prof, wall, args.steps, f"serving step x{args.steps}", out)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        line = (f"serving step ({label}), {SERVE_SLOTS} slots, full buffer: "
+                f"median {np.median(times):.3f} ms over 10 steps "
+                f"[{dev_name}]")
+        print(line)
+        out.append(line)
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                eng.step(rows)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        summarize(prof, wall, args.steps,
+                  f"serving step ({label}) x{args.steps}", out,
+                  watch=("grid_pool_fwd",))
+
+    kernel_diff(model, cfg, dev_name, out)
 
     ps = eng._carry.point_state
     pos = torch.as_tensor(np.concatenate([rows[0].pos_xy] * SERVE_SLOTS),

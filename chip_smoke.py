@@ -23,9 +23,13 @@ Phases, in order (any failure raises and the exit code is not 0):
   (d) the main paths, each driven with every launch count set to 0 just
       before it and read just after:
       - the serving engine at full R2R width (r2r_config(), seeded random
-        weights) answers 6 requests over 4 slots; logits are checked and the
-        same steps rerun with the plain ops must agree; then a tiny-width
-        step on the card must agree with the same step on the CPU;
+        weights; its step captured in a CUDA graph) answers 6 requests over
+        4 slots; logits are checked and the same steps rerun with the plain
+        ops must agree; then a tiny-width step on the card must agree with
+        the same step on the CPU. K1's launches on a graphed path count the
+        warm-up step's call and one per replay (path_launches; the call
+        made during capture only records the launch), which torch.profiler
+        checks once over two replays;
       - ClipFeatureExtractor.run at clip_b32() width over 32 synthetic
         panoramas (batch 16), bf16, rerun with the plain ops; the same in
         f32 over 4 panoramas;
@@ -45,6 +49,20 @@ Phases, in order (any failure raises and the exit code is not 0):
         update, the same loss and gradients through the plain ops (run
         reproducibly) must agree, and a tiny update on the card must agree
         with the same on the CPU;
+      - real data: a one-scan R2R world written to disk at the real feature
+        widths as gmmstore files, then `main_nav --world r2r
+        --feature_backend gmmstore --iters 2 --batch_size 4 --eval` at
+        r2r_config() width; GmmStoreWorld must serve (native and Python
+        readers byte-equal on every key where the native library builds),
+        K1, K5a and K5b must launch, the metrics must be finite;
+      - the serving bundle: language and nav_step exported with torch.export
+        at r2r_config() width and 4 slots (from seed-0 weights), saved,
+        loaded and served through NavServingEngine.from_bundle with seed-11
+        weights over the same 6 requests x 18 steps; logits against a
+        create engine on those weights (equal bits expected; 1e-5 x
+        max|logit| at most), the graphed create engine against an eager
+        one the same way, and a step that waits on the host must make the
+        capture raise;
   (e) times with CUDA events (kernel, plain version, library yardstick,
       bound; the pool at the serving, pipeline and train shapes; LayerNorm
       at the tower's and the tiny tower's widths in both types; K4 at the
@@ -52,8 +70,10 @@ Phases, in order (any failure raises and the exit code is not 0):
       with its backend named; the launch floor beside the pool backward's
       pass 2), encode
       and pipeline views/s, the pipeline's peak device memory,
-      the serving step time, and the train update's time and peak memory,
-      each beside the card;
+      the serving step time (the graphed create engine, the eager one and
+      the graphed from_bundle engine, 25 steps each in two turns, host
+      clock), the bundle's export time, and the train update's time and
+      peak memory, each beside the card; every phase's seconds;
   (f) the kernels line; (g) the result line, last.
 
 A longer report goes to chiprun_out/chip_smoke_report.json.
@@ -65,6 +85,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -134,6 +155,11 @@ SERVE_SLOTS, FIRST_STEPS, LATER_STEPS = 4, 15, 3
 # in f32 (TF32 off): the pools differ only in summation order (~1e-6
 # relative), which 13 transformer layers may amplify to ~1e-5
 LOGIT_TOL = 1e-4
+# the same kernels in the same order (CUDA graph vs eager, exported program
+# vs live module): equal bits are expected; any difference must stay below
+# 1e-5 of the largest logit
+LOGIT_BITS_TOL = 1e-5
+BUNDLE_SEED = 11               # weights the bundle serves (exported: seed 0)
 TRAIN_STEPS = 15               # cfg.train.max_action_len: 15 x 588 = 8820
 LOOP_BATCH, LOOP_ITERS = 4, 2  # train_navigator: one teacher, one sample
 UPDATES = 3                    # make_train_step on one synthetic batch
@@ -161,6 +187,20 @@ def card() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
     return out[torch.cuda.current_device()].strip()
+
+
+def path_launches(counted, engines):
+    """Kernel launches of a path that ran CUDA-graphed serving engines. A
+    wrapper counts each call of its kernel; the call made while a graph is
+    captured only records the launch, which every replay then makes, so
+    each engine adds (replays - 1) x the launches its capture recorded
+    (NavServingEngine.graph_launches). torch.profiler checks this once
+    (check_graph_launches)."""
+    out = dict(counted)
+    for eng in engines:
+        for name, n in eng.graph_launches.items():
+            out[name] += n * (eng.replays - 1)
+    return out
 
 
 def reset_counts():
@@ -458,10 +498,13 @@ def check_pool_bwd_kernels(report):
         report[name]["max_abs_err"] = err
 
 
-def run_engine(model, cfg, rows, texts):
+def run_engine(model, cfg, rows, texts, make=None, cuda_graph=True):
     """Drive a 4-slot engine through the request schedule, checking every
-    step. Returns (per-step fused logits on the host, the engine)."""
-    eng = NavServingEngine.create(model, cfg, SERVE_SLOTS)
+    step. The engine is `make()`, or a `create` engine over `model` (CUDA-
+    graphed unless cuda_graph=False). Returns (per-step fused logits on the
+    host, the engine)."""
+    eng = make() if make is not None else NavServingEngine.create(
+        model, cfg, SERVE_SLOTS, cuda_graph=cuda_graph)
     for r, (ids, mask) in enumerate(texts):
         eng.submit(r, ids, mask)
     eng.admit()
@@ -527,15 +570,21 @@ def main_path(report):
     fused_kernel, eng = run_engine(model, cfg, rows, texts)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = counts()
+    launches = path_launches(counts(), [eng])
     n_steps = FIRST_STEPS + LATER_STEPS
     print(f"  served {n_req} requests over {SERVE_SLOTS} slots in {n_steps} "
-          f"steps ({wall:.2f}s with first-call overheads); buffer count "
+          f"steps, CUDA-graphed ({wall:.2f}s with first-call overheads and "
+          f"the capture); buffer count "
           f"{eng._carry.point_state.count.tolist()}")
-    print(f"  launches during the serving path: {launches}")
-    require(launches["grid_pool_fwd"] == n_steps,
+    print(f"  launches during the serving path (one warm-up step before "
+          f"the capture, then one replay a step; the capture recorded "
+          f"{eng.graph_launches}): {launches}")
+    require(eng.replays == n_steps and eng.graph_launches == {
+        "grid_pool_fwd": 1}, f"{eng.replays} replays, captured "
+        f"{eng.graph_launches}")
+    require(launches["grid_pool_fwd"] == n_steps + 1,
             f"grid_pool_fwd launched {launches['grid_pool_fwd']} times in "
-            f"{n_steps} steps")
+            f"{n_steps} steps and a warm-up")
     report["grid_pool_fwd"]["launches"] = launches["grid_pool_fwd"]
 
     # the same steps with the plain pool on the card
@@ -555,7 +604,7 @@ def main_path(report):
                            "steps": n_steps, "launches": launches,
                            "fused_logits_max_abs_diff_vs_plain": worst,
                            "parameters": n_params}
-    return eng, cfg, rows
+    return eng, cfg, rows, texts
 
 
 def tiny_cpu_reference():
@@ -595,6 +644,272 @@ def tiny_cpu_reference():
     print(f"  tiny config, 4 steps, card (kernel) vs CPU (plain): fused "
           f"max|diff| {worst:.3e} (tolerance 1e-4)")
     return worst
+
+
+# ---------------------------------------- (d) real data and serving bundle
+def write_r2r_world(root: Path, seed: int = 0) -> Path:
+    """One scan of 6 viewpoints in the reference layout
+    ROOT/R2R/{features,connectivity,annotations}, at the real feature
+    widths: views (36, 768) f32, clip_p32 grid tokens (12, 50, 768) f16 and
+    depth already sliced to (12, 49) uint16 patch centers, as
+    `convert_store --slice-depth-patches` writes it. The stores are written
+    with the port's write_store (the card's machine has no h5py)."""
+    from gridmm_tpu_torch.data.preprocess import extract_viewpoint_info
+    from gridmm_tpu_torch.data.store import write_store
+
+    r2r = root / "R2R"
+    feat, conn, anno = (r2r / "features", r2r / "connectivity",
+                        r2r / "annotations")
+    for p in (feat, conn, anno):
+        p.mkdir(parents=True, exist_ok=True)
+    world = SyntheticWorld(num_scans=1, nodes_per_scan=6, feat_dim=768,
+                           seed=seed)
+    scan = world.scans()[0]
+    g = world.graphs[scan]
+    rng = np.random.default_rng(seed)
+    views, depth, grid = {}, {}, {}
+    for vp in g.positions:
+        key = f"{scan}_{vp}"
+        views[key] = world.view_features(scan, vp).astype(np.float32)
+        d = rng.integers(2000, 20000, size=(12, 49)).astype(np.uint16)
+        d[rng.random(d.shape) < 0.1] = 0
+        depth[key] = d
+        grid[key] = rng.standard_normal((12, 50, 768)).astype(np.float16)
+    for name, recs in (("pth_vit_base_patch16_224_imagenet", views),
+                       ("depth", depth), ("clip_p32", grid)):
+        write_store(str(feat / f"{name}.gmm"), recs)
+    (feat / "viewpoint_info.json").write_text(
+        json.dumps(extract_viewpoint_info(world.graphs)))
+    vps = list(g.positions)
+    items = []
+    for vp in vps:
+        pose = [0.0] * 16
+        pose[3], pose[7], pose[11] = g.positions[vp]
+        items.append({"image_id": vp, "included": True,
+                      "unobstructed": [n in g.neighbors(vp) for n in vps],
+                      "pose": pose, "height": 1.5})
+    (conn / f"{scan}_connectivity.json").write_text(json.dumps(items))
+    eps = synthetic_episodes(world, num=8, seed=seed, max_len=4)
+    (anno / "R2R_train_enc.json").write_text(json.dumps(eps))
+    (anno / "R2R_val_unseen_enc.json").write_text(json.dumps(eps[:4]))
+    return root
+
+
+def real_data_path(report):
+    """(d) main_nav --world r2r at r2r_config() width on an on-disk world
+    of gmmstore files: two training iterations and an evaluation; K1, K5a
+    and K5b must launch, GmmStoreWorld must serve, and where the native
+    reader builds it must give the Python reader's bytes on every key."""
+    from gridmm_tpu_torch.cli import main_nav as cli
+    from gridmm_tpu_torch.data.store import (NativeStoreReader,
+                                             PyStoreReader, _native_lib)
+
+    runs = ROOT / "runs" / "chip_smoke"
+    shutil.rmtree(runs, ignore_errors=True)
+    root = write_r2r_world(runs / "world")
+    argv = ["--world", "r2r", "--root_dir", str(root), "--feature_backend",
+            "gmmstore", "--iters", "2", "--log_every", "1", "--batch_size",
+            "4", "--eval", "--output_dir", str(runs / "main_nav")]
+    train_env, _, _ = cli.build_real(cli.parse_args(argv), r2r_config())
+    world = train_env.world
+    reader = type(world._view).__name__
+    require(type(world).__name__ == "GmmStoreWorld",
+            f"main_nav built {type(world).__name__}")
+    world.close()
+    print(f"  world: {type(world).__name__}, {len(train_env.data)} train "
+          f"episodes, stores read by {reader}")
+    native = "not built (no C++ compiler)"
+    if _native_lib() is not None:
+        for store in sorted((root / "R2R" / "features").glob("*.gmm")):
+            nat, py = NativeStoreReader(str(store)), PyStoreReader(str(store))
+            require(len(nat) == len(py) and nat.dtype == py.dtype
+                    and nat.shape == py.shape, f"{store.name}: headers")
+            for k in py.keys():
+                require(nat.get(k).tobytes() == py.get(k).tobytes(),
+                        f"{store.name} {k}: readers differ")
+            nat.close()
+            py.close()
+        native = "native and Python readers byte-equal on every key"
+    print(f"  native reader: {native}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    result = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = counts()
+    print(f"  main_nav --world r2r, r2r_config() width, 2 iterations + "
+          f"evaluation: {wall:.1f}s; best_spl {result.best_spl}; launches "
+          f"{launches}")
+    require(all(math.isfinite(float(v)) for v in
+                result.final_metrics.values()), "non-finite metrics")
+    for name in ("grid_pool_fwd", "grid_pool_bwd1", "grid_pool_bwd2"):
+        require(launches[name] > 0, f"{name} never launched in main_nav")
+    report["real_data"] = {"seconds": wall, "reader": reader,
+                           "native_check": native, "launches": launches,
+                           "best_spl": result.best_spl,
+                           "final_metrics": result.final_metrics}
+    shutil.rmtree(runs, ignore_errors=True)
+
+
+def compare_logits(got, want, what):
+    """Every step's fused logits: -inf at the same places, the rest within
+    LOGIT_BITS_TOL x max|logit| (equal bits expected). Returns (max|diff|,
+    bits equal)."""
+    worst, equal = 0.0, True
+    for s, (a, b) in enumerate(zip(got, want)):
+        fin = torch.isfinite(b)
+        require(torch.equal(torch.isfinite(a), fin),
+                f"{what}, step {s}: finite sets differ")
+        diff = (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0
+        scale = b[fin].abs().max().item() if fin.any() else 0.0
+        require(diff <= LOGIT_BITS_TOL * scale,
+                f"{what}, step {s}: max|diff| {diff:.3e} > "
+                f"{LOGIT_BITS_TOL} x {scale:.3e}")
+        worst = max(worst, diff)
+        equal = equal and torch.equal(a, b)
+    return worst, equal
+
+
+def check_graph_launches(eng, step_rows_, dev_name):
+    """torch.profiler over two replays: the trace's K1 launches must equal
+    the capture's count x 2 (path_launches' rule). Returns what was seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            eng.step(step_rows_)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type)]
+    k1 = sum(e.count for e in dev if "grid_pool_fwd" in e.key)
+    kernels = sum(e.count for e in dev)
+    if kernels == 0:
+        print("  profiler: the trace holds no device events; launches in "
+              "the graph not measured by it")
+        return None
+    want = 2 * eng.graph_launches["grid_pool_fwd"]
+    print(f"  profiler, 2 replays: {k1} grid_pool_fwd launches (capture "
+          f"count x replays = {want}), {kernels / 2:.1f} device events a "
+          f"step [{dev_name}]")
+    if k1 == 0:
+        print("  profiler: no kernel launched inside the graph is in the "
+              "trace; the count rule is not checked by it")
+        return None
+    require(k1 == want, f"profiler saw {k1} K1 launches in 2 replays")
+    return {"k1_in_two_replays": k1, "device_events_per_step": kernels / 2}
+
+
+def bundle_path(report, cfg, rows, texts, dev_name):
+    """(d) the serving bundle at r2r_config() width: exported on the card,
+    saved, loaded and served through from_bundle (CUDA-graphed) with other
+    weights than it was exported with, against a create engine on those
+    weights (graphed) and an eager one; a capture that fails raises.
+    Returns (graphed live engine, eager engine, bundle engine)."""
+    from gridmm_tpu_torch.train.step import nav_device_step as step_fn
+    from gridmm_tpu_torch.utils.export import (export_navigator_serving,
+                                               save_serving_bundle)
+
+    out_dir = ROOT / "chiprun_out" / "smoke_bundle"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    src = init_navigator(cfg.model, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    exports = export_navigator_serving(src, cfg, src.state_dict(),
+                                       batch=SERVE_SLOTS, device="cuda")
+    manifest = save_serving_bundle(
+        exports, str(out_dir), cfg=cfg,
+        extra_manifest={"batch": SERVE_SLOTS, "config": "r2r",
+                        "int8": False})
+    export_s = time.time() - t0
+    del src, exports
+    sizes = {p.name: p.stat().st_size for p in out_dir.glob("*.pt2")}
+    print(f"  exported language + nav_step at r2r width, batch "
+          f"{SERVE_SLOTS}, in {export_s:.1f}s; files {sizes} bytes "
+          f"(no weights); platforms "
+          f"{manifest['artifacts']['nav_step']['platforms']}")
+    weights = init_navigator(cfg.model, seed=BUNDLE_SEED, device="cuda")
+    n_steps = FIRST_STEPS + LATER_STEPS
+    torch.cuda.synchronize()
+    reset_counts()
+    served_logits, served = run_engine(
+        None, cfg, rows, texts, make=lambda: NavServingEngine.from_bundle(
+            str(out_dir), cfg, dict(weights.state_dict()), SERVE_SLOTS))
+    torch.cuda.synchronize()
+    launches = path_launches(counts(), [served])
+    print(f"  from_bundle engine: {n_steps} steps, launches {launches} "
+          f"(captured {served.graph_launches}, {served.replays} replays)")
+    require(launches["grid_pool_fwd"] == n_steps + 1,
+            f"bundle path: K1 launched {launches['grid_pool_fwd']} times")
+    live_logits, live = run_engine(weights, cfg, rows, texts)
+    eager_logits, eager = run_engine(weights, cfg, rows, texts,
+                                     cuda_graph=False)
+    bundle_diff, bundle_bits = compare_logits(
+        served_logits, live_logits, "from_bundle vs create")
+    graph_diff, graph_bits = compare_logits(
+        live_logits, eager_logits, "graphed vs eager")
+    print(f"  fused logits, {n_steps} steps, weights seed {BUNDLE_SEED} "
+          f"(the bundle was exported from seed 0): from_bundle vs create "
+          f"max|diff| {bundle_diff:.3e} (equal bits: {bundle_bits}); "
+          f"graphed vs eager {graph_diff:.3e} (equal bits: {graph_bits}); "
+          f"tolerance {LOGIT_BITS_TOL} x max|logit|")
+    seen = check_graph_launches(
+        live, {s: rows[s][-1] for s in range(SERVE_SLOTS)}, dev_name)
+
+    def syncing_step(txt, mask, carry, x):
+        carry, out = step_fn(weights, cfg, txt, mask, carry, x)
+        out.fused_logits.sum().item()   # a host wait: not capturable
+        return carry, out
+
+    try:
+        NavServingEngine(cfg, SERVE_SLOTS, lang_fn=lambda i, m: weights(
+            "language", {"txt_ids": i, "txt_mask": m}), step_fn=syncing_step)
+    except RuntimeError as e:
+        require("capture" in str(e), f"unexpected error: {e}")
+        print(f"  a step that waits on the host: the engine raised "
+              f"({str(e).splitlines()[0][:70]}...)")
+    else:
+        raise AssertionError("capture of a syncing step did not raise")
+    torch.cuda.synchronize()
+    for p in out_dir.glob("*.pt2"):
+        p.unlink()   # the manifest stays
+    report["bundle"] = {
+        "export_s": export_s, "pt2_bytes": sizes, "launches": launches,
+        "from_bundle_vs_create_max_abs_diff": bundle_diff,
+        "from_bundle_vs_create_equal_bits": bundle_bits,
+        "graphed_vs_eager_max_abs_diff": graph_diff,
+        "graphed_vs_eager_equal_bits": graph_bits,
+        "profiler": seen, "weights_seed": BUNDLE_SEED}
+    return live, eager, served
+
+
+def time_serving(engines, cfg, dev_name):
+    """(e) serving step, host clock around each synchronised step, 25 steps
+    an engine, the engines in turns twice (A, B, C, C, B, A)."""
+    rng = np.random.default_rng(9)
+    step_rows_ = {slot: step_row(cfg, rng, 5)
+                  for slot in range(SERVE_SLOTS)}
+    order = list(engines) + list(reversed(engines))
+    ms = {label: [] for label, _ in engines}
+    for label, eng in order:
+        for _ in range(3):
+            eng.step(step_rows_)
+        torch.cuda.synchronize()
+        for _ in range(25):
+            t0 = time.perf_counter()
+            eng.step(step_rows_)
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for label, vals in ms.items():
+        out[label] = {"median": float(np.median(vals)), "min": min(vals),
+                      "max": max(vals), "slots": SERVE_SLOTS,
+                      "iters": len(vals)}
+        print(f"  serving step, {label}, {SERVE_SLOTS} slots, full buffer: "
+              f"median {out[label]['median']:.3f} ms (min "
+              f"{out[label]['min']:.3f}, max {out[label]['max']:.3f}) over "
+              f"{len(vals)} steps in two turns, host clock [{dev_name}]")
+    return out
 
 
 def pool_bytes(g, cells):
@@ -1597,15 +1912,21 @@ def main() -> int:
     report["build_s"] = build_s
 
     # (c) kernels vs plain versions
+    phase_s = {"b": build_s}
+    t_phase = time.time()
     print("(c) kernels against their plain versions")
     check_pool_kernel(report)
     check_layernorm_kernel(report)
     check_attention_kernels(report)
     check_pool_bwd_kernels(report)
 
+    phase_s["c"] = time.time() - t_phase
+    print(f"    phase (c): {phase_s['c']:.1f}s")
+
     # (d) main paths
+    t_phase = time.time()
     print("(d) main path: serving engine, r2r_config() width")
-    eng, cfg, rows = main_path(report)
+    eng, cfg, rows, texts = main_path(report)
     report["tiny_cpu_vs_card_max_abs_diff"] = tiny_cpu_reference()
     print("(d) main path: CLIP extractor and encode_and_pool, clip_b32() "
           "width")
@@ -1623,8 +1944,20 @@ def main() -> int:
         tiny_update_cpu_reference()
     for name in ("attention_qkv_fwd", "layernorm_fwd"):
         report[name]["launches"] = report["pipeline"]["launches"][name]
+    phase_s["d_before_real_data"] = time.time() - t_phase
+    t_phase = time.time()
+    print("(d) main path: real data (main_nav --world r2r on gmmstore "
+          "files) and the serving bundle, r2r_config() width")
+    real_data_path(report)
+    live, eager, served = bundle_path(report, cfg, rows, texts, dev_name)
+    phase_s["d_real_data_and_bundle"] = time.time() - t_phase
+    print(f"    phase (d): {phase_s['d_before_real_data']:.1f}s, then "
+          f"{phase_s['d_real_data_and_bundle']:.1f}s for real data and the "
+          f"bundle")
 
     # (e) times
+    t_phase = time.time()
+
     print("(e) times")
     last = rows[2][-1]
     ps = eng._carry.point_state
@@ -1677,23 +2010,15 @@ def main() -> int:
     report["throughput"] = time_encode_and_pipeline(ex, clip_model,
                                                     pipe_cfg, dev_name)
 
-    rng = np.random.default_rng(9)
-    step_rows = {slot: step_row(cfg, rng, 5) for slot in range(SERVE_SLOTS)}
-    for _ in range(3):
-        eng.step(step_rows)
-    torch.cuda.synchronize()
-    step_ms = []
-    for _ in range(25):
-        t0 = time.perf_counter()
-        eng.step(step_rows)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    report["serving_step_ms"] = {"median": float(np.median(step_ms)),
-                                 "min": min(step_ms), "max": max(step_ms),
-                                 "slots": SERVE_SLOTS, "iters": 25}
-    print(f"  serving step, {SERVE_SLOTS} slots, full buffer: median "
-          f"{np.median(step_ms):.3f} ms (min {min(step_ms):.3f}, max "
-          f"{max(step_ms):.3f}) over 25 steps, host clock [{dev_name}]")
+    report["serving_step_ms"] = time_serving(
+        [("CUDA-graphed create", live), ("eager create", eager),
+         ("CUDA-graphed from_bundle", served)], cfg, dev_name)
+    print(f"  export of the serving bundle (language + nav_step, r2r "
+          f"width, batch {SERVE_SLOTS}): {report['bundle']['export_s']:.1f}s "
+          f"[{dev_name}]")
+    phase_s["e"] = time.time() - t_phase
+    print(f"    phase (e): {phase_s['e']:.1f}s")
+    report["phase_s"] = phase_s
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(

@@ -227,12 +227,7 @@ class GmmStoreWorld:
     def __init__(self, view_store: str, depth_store: str, grid_store: str,
                  viewpoint_info: Dict[str, Dict[str, float]],
                  image_feat_size: int = 768, prefer_native: bool = True):
-        try:
-            from gridmm_tpu_torch.data.store import open_store
-        except ImportError as e:
-            raise NotImplementedError(
-                "GmmStoreWorld needs data/store.py, which is not ported yet "
-                "(ROADMAP Queue 1 item 14)") from e
+        from gridmm_tpu_torch.data.store import open_store
 
         self._view = open_store(view_store, prefer_native)
         self._depth = open_store(depth_store, prefer_native)

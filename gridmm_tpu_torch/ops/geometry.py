@@ -266,7 +266,9 @@ def append_panorama(
     state.features[rows, cols] = patch_features.to(state.features.dtype)
     state.weights[rows, cols] = point_weights.to(state.weights.dtype)
     state.valid[rows, cols] = dvalid
-    state.inserted[rows, cols] = True
+    # tensors on the buffer's device, not Python scalars: a scalar would be
+    # copied from the host, which a CUDA graph cannot capture
+    state.inserted[rows, cols] = torch.ones_like(dvalid)
     return state._replace(count=state.count + ppstep)
 
 
@@ -285,7 +287,9 @@ def egocentric_grid_assignment(
     participate), only nonzero-depth points receive a cell (env.py:322-374).
     """
     px, py = state.xy[..., 0], state.xy[..., 1]
-    big = torch.tensor(1e4, dtype=_F32, device=px.device)  # env.py:146-149
+    # a Python scalar, not a tensor made on the host: the step stays free
+    # of host-to-device copies, so that a CUDA graph can capture it
+    big = 1e4  # env.py:146-149
     ins = state.inserted
     valid = state.valid
     if num_active is not None:

@@ -13,8 +13,10 @@ that also writes the mask, the denominator and the cell max;
 csrc/grid_pool_bwd.cu backward), a CPU tensor through `grid_scatter_pool_raw`
 and `grid_pool_bwd_plain`, the plain PyTorch versions of the same contract
 and the kernels' oracles (`cell_max` and `_finalize` are parts of the plain
-version only). Both devices go through one `GridPoolFunction`, so
-the pool is differentiable in `point_fts` and `weights` everywhere.
+version only). The forward is the custom op `gridmm::grid_pool_fwd`
+(`grid_pool_fwd_op`), whose fake body lets `torch.export` trace it; both
+devices go through one `GridPoolFunction`, so the pool is differentiable in
+`point_fts` and `weights` everywhere.
 """
 
 from __future__ import annotations
@@ -160,12 +162,51 @@ def grid_pool_bwd_plain(point_fts, cell_ids, weights, denom_pad, cot):
                                cot)[:2]
 
 
+@torch.library.custom_op("gridmm::grid_pool_fwd", mutates_args=(),
+                         device_types="cpu")
+def grid_pool_fwd_op(point_fts: torch.Tensor, cell_ids: torch.Tensor,
+                     weights: torch.Tensor, num_cells: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """The pool's forward as the custom op `gridmm::grid_pool_fwd`:
+    (pooled (B, C, D), cell_mask (B, C) bool, denom (B, 256), cmax (B, C)),
+    all fresh tensors, f32 (f64 for f64 features on the CPU).
+
+    The CPU body is the plain version; CUDA tensors launch the forward
+    kernel (ops/cuda/grid_pool.GridPoolFwd, which counts each call); the
+    fake body gives shapes and types to `torch.export`, which cannot trace
+    the kernel's ctypes launch (a fake tensor has no data pointer)."""
+    acc = _acc_dtype(point_fts)
+    pooled, cell_mask, denom = grid_scatter_pool_raw(point_fts, cell_ids,
+                                                     weights, num_cells)
+    return (pooled, cell_mask, denom.contiguous(),
+            cell_max(cell_ids, weights.to(acc), num_cells))
+
+
+@grid_pool_fwd_op.register_kernel("cuda")
+def _grid_pool_fwd_cuda(point_fts, cell_ids, weights, num_cells):
+    from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_fwd
+
+    return grid_pool_fwd(point_fts, cell_ids, weights, num_cells)
+
+
+@grid_pool_fwd_op.register_fake
+def _grid_pool_fwd_fake(point_fts, cell_ids, weights, num_cells):
+    b, _, d = point_fts.shape
+    acc = _acc_dtype(point_fts)
+    return (point_fts.new_empty((b, num_cells, d), dtype=acc),
+            point_fts.new_empty((b, num_cells), dtype=torch.bool),
+            point_fts.new_empty((b, CELL_PAD), dtype=acc),
+            point_fts.new_empty((b, num_cells), dtype=acc))
+
+
 class GridPoolFunction(torch.autograd.Function):
     """The dispatching pool with its analytic backward.
 
-    forward: the CUDA forward kernel for tensors on the card (one launch:
-    pooled, mask, denominator and cell max), the plain version for tensors
-    on the CPU; returns (pooled, cell_mask, denom), of which only `pooled`
+    forward: `gridmm::grid_pool_fwd`, i.e. the CUDA forward kernel for
+    tensors on the card (one launch: pooled, mask, denominator and cell
+    max), the plain version for tensors on the CPU; returns (pooled,
+    cell_mask, denom), of which only `pooled`
     is differentiable. backward: the two CUDA backward kernels on the card,
     which read the forward's cell max and denominator, `grid_pool_bwd_plain`
     on the CPU. `cell_ids` gets no gradient. Neither side gives way to the
@@ -174,15 +215,8 @@ class GridPoolFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, point_fts, cell_ids, weights, num_cells):
-        cmax = None
-        if point_fts.device.type == "cpu":
-            pooled, cell_mask, denom = grid_scatter_pool_raw(
-                point_fts, cell_ids, weights, num_cells)
-        else:
-            from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_fwd
-
-            pooled, cell_mask, denom, cmax = grid_pool_fwd(
-                point_fts, cell_ids, weights, num_cells)
+        pooled, cell_mask, denom, cmax = grid_pool_fwd_op(
+            point_fts, cell_ids, weights, num_cells)
         ctx.save_for_backward(point_fts, cell_ids, weights, denom, cmax)
         ctx.mark_non_differentiable(cell_mask, denom)
         return pooled, cell_mask, denom

@@ -67,7 +67,7 @@ def train_navigator(
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (data/tensor-parallel training) waits for the parallel "
-            "layer, ROADMAP Queue 1 item 11")
+            "layer (parallel/mesh.py; ROADMAP Queue 1, parallel layer)")
     for a in (agent, val_agent, aug_agent):
         if a is not None and a.model is not model:
             raise ValueError("every agent must hold the module being trained")

@@ -160,7 +160,8 @@ def _update_node_embeds(gmap_sum, gmap_cnt, pano_embeds, pano_mask,
         gmap_cnt.masked_fill_(future, 0.0)
 
     gmap_sum[bi, cur] = avg
-    gmap_cnt[bi, cur] = 1.0
+    gmap_cnt[bi, cur] = gmap_cnt.new_ones(b)  # not a host scalar: see
+    # geometry.append_panorama
 
     cand = cand_gmap_idx.long()
     valid = (cand >= 0) & ~torch.gather(gmap_visited_mask, 1,
@@ -256,7 +257,7 @@ def _loss_head_logits(cfg, out: NavOutputs, x: StepInputs):
     if cfg.train.loss_head == "ce":
         raise NotImplementedError(
             "loss_head='ce' needs ce/device_step.py, which is not ported "
-            "(ROADMAP Queue 1 item 13)")
+            "(ROADMAP Queue 1, VLN-CE)")
     return getattr(out, f"{cfg.train.loss_head}_logits")
 
 

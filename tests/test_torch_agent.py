@@ -371,7 +371,7 @@ def test_loop_dagger_sum_and_guards(tmp_path):
                      .splitlines()[0])
     assert rec["train/loss"] == pytest.approx(
         rec["train/loss_teacher"] + rec["train/loss_sample"], rel=1e-6)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
         TLOOP.train_navigator(tcfg, model, agent, iters=1, mesh=object())
     from gridmm_tpu_torch.models.navigator import init_navigator
 
@@ -402,15 +402,10 @@ def test_main_nav_cli_trains_evaluates_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--world", "r2r", "--root_dir", "/data"], "item 14"),
-    (["--mesh", "auto"], "item 11"),
-    (["--multihost"], "item 11"),
-    (["--root_dir", "/data"], "item 14"),
-    (["--feature_backend", "hdf5"], "item 14"),
-    (["--aug", "prevalent_aug"], "item 14"),
-    (["--aug_views", "views.hdf5"], "item 14"),
-    (["--scene_shard"], "item 11"),
-    (["--mp_size", "2"], "item 11")])
+    (["--mesh", "auto"], "parallel/mesh.py"),
+    (["--multihost"], "parallel/multihost.py"),
+    (["--scene_shard"], "parallel layer"),
+    (["--mp_size", "2"], "parallel layer")])
 def test_main_nav_cli_names_what_is_not_ported(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         TCLI.main(argv + ["--device", "cpu"])

@@ -497,3 +497,149 @@ def test_attention_kernels_count_launches_and_reject_bad_input():
         ATTENTION_FWD(x, x, x)
     assert (ATTENTION_QKV_FWD.launches, ATTENTION_FWD.launches) == (
         before[0] + 1, before[1] + 3)
+
+
+# ------------------------------------------ the op, the graphed step, bundles
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grid_pool_op_on_card_matches_plain(dtype):
+    """`gridmm::grid_pool_fwd` on CUDA tensors launches K1 once a call and
+    gives the plain version's mask, denominator and cell max, pooled within
+    the kernel test's bounds; `opcheck` passes on the card too."""
+    _require_card()
+    from gridmm_tpu_torch.ops.cuda.grid_pool import GRID_POOL_FWD
+
+    g, cells, w = pool_case("edges", getattr(torch, dtype), seed=4)
+    before = GRID_POOL_FWD.launches
+    pooled, mask, denom, cmax = torch.ops.gridmm.grid_pool_fwd(g, cells, w,
+                                                                196)
+    torch.cuda.synchronize()
+    assert GRID_POOL_FWD.launches == before + 1
+    ref = torch.ops.gridmm.grid_pool_fwd(g.cpu(), cells.cpu(), w.cpu(), 196)
+    assert torch.equal(mask.cpu(), ref[1])
+    assert torch.equal(cmax.cpu(), ref[3])
+    torch.testing.assert_close(denom.cpu(), ref[2], rtol=1e-5, atol=0)
+    tol = (1e-5 * ref[0].abs().max().item() if dtype == "float32"
+           else 2.0 ** -8 * g.float().abs().max().item())
+    assert (pooled.cpu() - ref[0]).abs().max().item() <= tol
+    small = tuple(t[:2, :600].contiguous() for t in (g, cells, w))
+    torch.library.opcheck(torch.ops.gridmm.grid_pool_fwd.default,
+                          (*small, 196))
+
+
+def _tiny_engine_inputs(cfg, n_req=3, steps=4, seed=0):
+    from chip_smoke import request_text, step_row
+
+    rng = np.random.default_rng(seed)
+    texts = [request_text(cfg, rng) for _ in range(n_req)]
+    rows = [[step_row(cfg, rng, t) for t in range(steps)]
+            for _ in range(n_req)]
+    return texts, rows
+
+
+def _drive(eng, texts, rows, slots):
+    """Admit the first `slots` requests, step them all, finish request 0,
+    admit the next, step again; returns every step's outputs on the host."""
+    for r, (ids, mask) in enumerate(texts):
+        eng.submit(r, ids, mask)
+    eng.admit()
+    outs, done = [], {r: 0 for r in range(len(texts))}
+    for step in range(len(rows[0])):
+        if step == 2:
+            eng.finish(0)
+            eng.admit()
+        active = eng.active()
+        out = eng.step({s: rows[r][done[r]] for r, s in active.items()})
+        outs.append({f: getattr(out, f).cpu() for f in
+                     ("fused_logits", "global_logits", "grid_logits")})
+        for r in active:
+            done[r] += 1
+    return outs
+
+
+def _assert_outs_close(got, want):
+    """Within 1e-5 x max|logit|, -inf at the same places (equal bits are
+    expected: the same kernels run in the same order)."""
+    for a_step, b_step in zip(got, want):
+        for f, b in b_step.items():
+            a = a_step[f]
+            fin = torch.isfinite(b)
+            assert torch.equal(torch.isfinite(a), fin), f
+            scale = b[fin].abs().max().item()
+            assert (a[fin] - b[fin]).abs().max().item() <= 1e-5 * scale, f
+
+
+@pytest.mark.cuda
+def test_graphed_serving_step_matches_eager():
+    """The CUDA-graphed engine against an eager engine over the same model
+    and requests; the capture records one K1 launch that every replay
+    repeats."""
+    _require_card()
+    from gridmm_tpu_torch.config import tiny_config
+    from gridmm_tpu_torch.models.navigator import init_navigator
+    from gridmm_tpu_torch.serve.engine import NavServingEngine
+
+    cfg = tiny_config()
+    model = init_navigator(cfg.model, seed=2, device="cuda")
+    texts, rows = _tiny_engine_inputs(cfg)
+    graphed = NavServingEngine.create(model, cfg, 2)
+    eager = NavServingEngine.create(model, cfg, 2, cuda_graph=False)
+    assert graphed.graph_launches == {"grid_pool_fwd": 1}
+    assert eager.graph_launches == {}
+    _assert_outs_close(_drive(graphed, texts, rows, 2),
+                       _drive(eager, texts, rows, 2))
+    assert graphed.replays == len(rows[0]) and eager.replays == 0
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises():
+    """A step that waits on the host cannot be captured: the engine raises
+    and does not run eager in its place."""
+    _require_card()
+    from gridmm_tpu_torch.config import tiny_config
+    from gridmm_tpu_torch.models.navigator import init_navigator
+    from gridmm_tpu_torch.serve.engine import NavServingEngine
+    from gridmm_tpu_torch.train.step import nav_device_step
+
+    cfg = tiny_config()
+    model = init_navigator(cfg.model, seed=2, device="cuda")
+
+    def syncing_step(txt, mask, carry, x):
+        carry, out = nav_device_step(model, cfg, txt, mask, carry, x)
+        out.fused_logits.sum().item()   # a host wait inside the step
+        return carry, out
+
+    with pytest.raises(RuntimeError, match="capture"):
+        NavServingEngine(cfg, 2, lang_fn=lambda i, m: model(
+            "language", {"txt_ids": i, "txt_mask": m}),
+            step_fn=syncing_step, device="cuda")
+
+
+@pytest.mark.cuda
+def test_bundle_round_trip_on_card(tmp_path):
+    """A tiny bundle exported on the card, loaded and served through
+    `from_bundle` (graphed) with other weights, against a `create` engine
+    on those weights."""
+    _require_card()
+    from gridmm_tpu_torch.config import tiny_config
+    from gridmm_tpu_torch.models.navigator import init_navigator
+    from gridmm_tpu_torch.serve.engine import NavServingEngine
+    from gridmm_tpu_torch.utils.export import (export_navigator_serving,
+                                               save_serving_bundle)
+
+    cfg = tiny_config()
+    exported_from = init_navigator(cfg.model, seed=0, device="cuda")
+    manifest = save_serving_bundle(
+        export_navigator_serving(exported_from, cfg,
+                                 exported_from.state_dict(), batch=2,
+                                 device="cuda"),
+        str(tmp_path), cfg=cfg, extra_manifest={"batch": 2})
+    assert manifest["artifacts"]["nav_step"]["platforms"] == ["cuda"]
+    model = init_navigator(cfg.model, seed=6, device="cuda")
+    texts, rows = _tiny_engine_inputs(cfg, seed=1)
+    served = NavServingEngine.from_bundle(str(tmp_path), cfg,
+                                          dict(model.state_dict()), 2)
+    live = NavServingEngine.create(model, cfg, 2)
+    assert served.graph_launches == {"grid_pool_fwd": 1}
+    _assert_outs_close(_drive(served, texts, rows, 2),
+                       _drive(live, texts, rows, 2))
