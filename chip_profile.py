@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the serving step's, the encoder's and the train update's time goes
-on the card (gridmm_tpu_torch).
+"""Where the serving step's, the encoder's, the train update's and the
+pretraining update's time goes on the card (gridmm_tpu_torch).
 
     python3 chip_profile.py [--steps 5]
     python3 chip_profile.py --ab OTHER_TREE
@@ -24,7 +24,9 @@ the point buffers with 15 steps, then:
   * makes one make_train_step update of the full-width navigator on a
     synthetic batch of cfg.train.batch_size trajectories x 15 steps as
     warm-up, then traces one more: launches, device time by operator and
-    the device-busy share of the update.
+    the device-busy share of the update;
+  * does the same for one pretraining update of each task (mlm, mrc, sap)
+    at r2r width on the 12,416-point buffer, 8 trajectories x 21 steps.
 
 The encode's and the pipeline's tables are followed by LayerNorm's launches
 and device time per launch.
@@ -71,8 +73,12 @@ from gridmm_tpu_torch.ops.cuda.layernorm import LAYERNORM_FWD
 from gridmm_tpu_torch.serve.engine import NavServingEngine
 from gridmm_tpu_torch.utils.export import (export_navigator_serving,
                                            save_serving_bundle)
+from gridmm_tpu_torch.cli import pretrain as pretrain_cli
+from gridmm_tpu_torch.train.pretrain import (init_pretrain_params,
+                                             make_pretrain_step)
 from gridmm_tpu_torch.train.step import create_train_state, make_train_step
-from gridmm_tpu_torch.train.synthetic import synthetic_trajectory_batch
+from gridmm_tpu_torch.train.synthetic import (synthetic_pretrain_batch,
+                                              synthetic_trajectory_batch)
 
 ROOT = Path(__file__).resolve().parent
 
@@ -464,6 +470,29 @@ def main() -> int:
               f"train update x1 ({b} trajectories x {s} steps, "
               f"r2r_config() f32, remat_steps={cfg.train.remat_steps})", out,
               top=25)
+    del model, train_state, batch
+
+    # one pretraining update of each task at r2r width on the 12,416-point
+    # buffer (8 trajectories x 21 steps), as chip_smoke.py times them
+    pcfg = pretrain_cli._resolve_config(
+        pretrain_cli.parse_args(["--preset", "r2r"]))
+    model = init_pretrain_params(pcfg.model, seed=1, device="cuda")
+    model.eval()
+    state = create_train_state(pcfg, model)
+    batch = synthetic_pretrain_batch(pcfg, 8, 21, seed=0, device="cuda")
+    for task in ("mlm", "mrc", "sap"):
+        step = make_pretrain_step(pcfg, task)
+        step(state, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        summarize(prof, wall, 1, f"pretrain update x1, {task} (8 x 21, "
+                  f"{pcfg.shapes.max_points}-point buffer, r2r width, f32)",
+                  out, top=20)
     (out_dir / "chip_profile.txt").write_text("\n".join(out) + "\n")
     return 0
 

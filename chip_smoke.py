@@ -61,8 +61,30 @@ Phases, in order (any failure raises and the exit code is not 0):
         weights over the same 6 requests x 18 steps; logits against a
         create engine on those weights (equal bits expected; 1e-5 x
         max|logit| at most), the graphed create engine against an eager
-        one the same way, and a step that waits on the host must make the
-        capture raise;
+        one the same way; last of all (after phase e), a step that waits on
+        the host must make the capture raise, and dropout on the card must
+        still draw after it;
+      - pretraining at r2r width: cli/pretrain.main --preset r2r --device
+        cuda (the 12,416-point buffer; synthetic batches of 8 trajectories
+        x 21 steps fill 12,348 points a row), 3 updates of the tasks
+        mlm, mrc, sap and a validation, then one --accum_steps 2 window;
+        K1 once per update and validated task, K5a and K5b once per
+        update (per microbatch in the window); then 3 updates of each
+        task on one fixed batch (the loss must fall, K1/K5a/K5b once an
+        update), the first update's loss and gradients through the plain
+        ops under the reproducible reference (GRAD_SEED weights), and a
+        tiny update of each of the four tasks (OG with object tokens) card
+        vs CPU;
+      - released-checkpoint import at r2r width: a reference-layout
+        navigator state dict synthesized from seed 11 and nested as
+        grid_map.pt is ('module.vln_bert.' keys), imported with
+        import_torch_navigator and served by the graphed create engine
+        against one loaded with the same weights directly (no transpose:
+        a reference Linear weight is the port's layout); export_serving
+        --navigator_ckpt on that file, served through from_bundle with the
+        shipped navigator.pt; a pretrain-layout dict through
+        remap_pretrain_to_navigator served the same way (1e-5 x
+        max|logit|);
   (e) times with CUDA events (kernel, plain version, library yardstick,
       bound; the pool at the serving, pipeline and train shapes; LayerNorm
       at the tower's and the tiny tower's widths in both types; K4 at the
@@ -73,7 +95,11 @@ Phases, in order (any failure raises and the exit code is not 0):
       the serving step time (the graphed create engine, the eager one and
       the graphed from_bundle engine, 25 steps each in two turns, host
       clock), the bundle's export time, and the train update's time and
-      peak memory, each beside the card; every phase's seconds;
+      peak memory; K1, K5a and K5b at the pretraining buffer (B=8,
+      N=12,416, D=768 f32) beside their bounds, plain versions and library
+      calls; each pretraining task's update time (median of 3, host clock
+      and CUDA events) and peak memory; each beside the card; every
+      phase's seconds;
   (f) the kernels line; (g) the result line, last.
 
 A longer report goes to chiprun_out/chip_smoke_report.json.
@@ -124,7 +150,17 @@ from gridmm_tpu_torch.train.loop import train_navigator
 from gridmm_tpu_torch.train.step import (StepInputs, create_train_state,
                                          init_carry, make_train_step,
                                          nav_device_step, trajectory_loss)
-from gridmm_tpu_torch.train.synthetic import synthetic_trajectory_batch
+from gridmm_tpu_torch.train.synthetic import (synthetic_pretrain_batch,
+                                              synthetic_trajectory_batch)
+from gridmm_tpu_torch.cli import export_serving as export_cli_mod
+from gridmm_tpu_torch.cli import parity_eval as parity_eval_mod
+from gridmm_tpu_torch.cli import pretrain as pretrain_cli_mod
+from gridmm_tpu_torch.convert import torch_name
+from gridmm_tpu_torch.models.pretrain import GridMMPretrain
+from gridmm_tpu_torch.train.pretrain import (PretrainBatch,
+                                             init_pretrain_params,
+                                             make_pretrain_step, task_loss)
+from gridmm_tpu_torch.utils import checkpoint as CK
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -173,6 +209,12 @@ UPDATES = 3                    # make_train_step on one synthetic batch
 # the same bits on every run (reproducible_reference), so for given weights
 # the comparison is one number; with this seed no unit switches.
 GRAD_SEED = 4
+# pretraining at r2r width: 8 trajectories x 21 steps fill 21 x 588 =
+# 12,348 points of the 12,416-point buffer (cli/pretrain._resolve_config)
+PRETRAIN_B, PRETRAIN_S, PRETRAIN_N = 8, 21, 12416
+PRETRAIN_TASKS = ("mlm", "mrc", "sap")
+PRETRAIN_UPDATES = 3
+IMPORT_SEED = 11               # the reference-layout state dicts' draws
 
 
 def require(cond, msg: str) -> None:
@@ -804,9 +846,8 @@ def bundle_path(report, cfg, rows, texts, dev_name):
     """(d) the serving bundle at r2r_config() width: exported on the card,
     saved, loaded and served through from_bundle (CUDA-graphed) with other
     weights than it was exported with, against a create engine on those
-    weights (graphed) and an eager one; a capture that fails raises.
+    weights (graphed) and an eager one.
     Returns (graphed live engine, eager engine, bundle engine)."""
-    from gridmm_tpu_torch.train.step import nav_device_step as step_fn
     from gridmm_tpu_torch.utils.export import (export_navigator_serving,
                                                save_serving_bundle)
 
@@ -856,20 +897,6 @@ def bundle_path(report, cfg, rows, texts, dev_name):
     seen = check_graph_launches(
         live, {s: rows[s][-1] for s in range(SERVE_SLOTS)}, dev_name)
 
-    def syncing_step(txt, mask, carry, x):
-        carry, out = step_fn(weights, cfg, txt, mask, carry, x)
-        out.fused_logits.sum().item()   # a host wait: not capturable
-        return carry, out
-
-    try:
-        NavServingEngine(cfg, SERVE_SLOTS, lang_fn=lambda i, m: weights(
-            "language", {"txt_ids": i, "txt_mask": m}), step_fn=syncing_step)
-    except RuntimeError as e:
-        require("capture" in str(e), f"unexpected error: {e}")
-        print(f"  a step that waits on the host: the engine raised "
-              f"({str(e).splitlines()[0][:70]}...)")
-    else:
-        raise AssertionError("capture of a syncing step did not raise")
     torch.cuda.synchronize()
     for p in out_dir.glob("*.pt2"):
         p.unlink()   # the manifest stays
@@ -881,6 +908,38 @@ def bundle_path(report, cfg, rows, texts, dev_name):
         "graphed_vs_eager_equal_bits": graph_bits,
         "profiler": seen, "weights_seed": BUNDLE_SEED}
     return live, eager, served
+
+
+def check_failed_capture(cfg):
+    """(d) a serving step that waits on the host cannot be captured: the
+    engine must raise, and afterwards dropout on the card must still draw
+    (the engine puts CUDA's default generator back out of its capture
+    state). Run last: before the engine did so, a failed capture made
+    every later dropout on the card raise."""
+    from gridmm_tpu_torch.train.step import nav_device_step as step_fn
+
+    weights = init_navigator(cfg.model, seed=BUNDLE_SEED, device="cuda")
+
+    def syncing_step(txt, mask, carry, x):
+        carry, out = step_fn(weights, cfg, txt, mask, carry, x)
+        out.fused_logits.sum().item()   # a host wait: not capturable
+        return carry, out
+
+    try:
+        NavServingEngine(cfg, SERVE_SLOTS, lang_fn=lambda i, m: weights(
+            "language", {"txt_ids": i, "txt_mask": m}), step_fn=syncing_step)
+    except RuntimeError as e:
+        require("capture" in str(e), f"unexpected error: {e}")
+        msg = str(e).splitlines()[0][:70]
+    else:
+        raise AssertionError("capture of a syncing step did not raise")
+    kept = F.dropout(torch.ones(1 << 16, device="cuda"), 0.5, True)
+    share = (kept > 0).float().mean().item()
+    require(0.45 < share < 0.55, f"dropout after the failed capture kept "
+            f"{share:.3f}")
+    print(f"  a step that waits on the host: the engine raised ({msg}...); "
+          f"dropout on the card afterwards kept {share:.4f} of 65,536")
+    return {"raised": msg, "dropout_kept_share": share}
 
 
 def time_serving(engines, cfg, dev_name):
@@ -1578,6 +1637,313 @@ def tiny_update_cpu_reference():
     return worst
 
 
+# ------------------------------------- (d) pretraining, checkpoint import
+def pretrain_cli(extra, out_dir):
+    """cli/pretrain.main at r2r width on the card, synthetic batches of
+    PRETRAIN_B trajectories x PRETRAIN_S steps; returns its TrainState."""
+    argv = ["--preset", "r2r", "--device", "cuda", "--batch_size",
+            str(PRETRAIN_B), "--num_traj_steps", str(PRETRAIN_S),
+            "--output_dir", str(out_dir)] + extra
+    return pretrain_cli_mod.main(argv)
+
+
+def pretrain_loss_and_grads(model, batch, task):
+    """One task loss and its gradients, no update."""
+    model.zero_grad(set_to_none=True)
+    loss = task_loss(model, batch, task)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def with_objects(batch):
+    """A tiny synthetic pretraining batch (2 items) with object tokens at vp
+    positions 2..4 and an OG label on each item (tests/test_torch_pretrain
+    does the same)."""
+    b = PretrainBatch(*(t.clone() for t in batch))
+    b.traj_nav_types[:, :, 1:4] = 2
+    b.vp_obj_mask[:, 2:5] = True
+    b.obj_labels.copy_(torch.tensor([3, 2], dtype=torch.int32))
+    return b
+
+
+def pretraining_path(report):
+    """(d) pretraining at r2r width through cli/pretrain.main (the 12,416-
+    point buffer, 8 x 21 trajectories): a 3-update multi-task run and a
+    --accum_steps 2 window, each with the launch counts reset before and
+    read after; then 3 updates of each task on one fixed batch (the loss
+    must fall), the first update's loss and gradients against the plain
+    ops, and a tiny update of each of the four tasks card vs CPU. Returns
+    (state, fixed batch, cfg) for the times of phase e."""
+    cfg = pretrain_cli_mod._resolve_config(
+        pretrain_cli_mod.parse_args(["--preset", "r2r"]))
+    ppstep = cfg.grid.points_per_step
+    require(cfg.shapes.max_points == PRETRAIN_N
+            and PRETRAIN_S * ppstep == 12348,
+            "the pretraining buffer is not 21 x 588 of 12,416 points")
+    out_dir = ROOT / "runs" / "chip_smoke" / "pretrain"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    res = {}
+    # the multi-task run: 3 updates, then the validation of 3 tasks
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    state = pretrain_cli(["--tasks", ",".join(PRETRAIN_TASKS),
+                          "--mix_ratio", "1,1,1", "--steps",
+                          str(PRETRAIN_UPDATES), "--valid_every",
+                          str(PRETRAIN_UPDATES)], out_dir / "run")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = counts()
+    print(f"  cli/pretrain.main --preset r2r --device cuda, {PRETRAIN_B} x "
+          f"{PRETRAIN_S}, {PRETRAIN_UPDATES} updates of tasks "
+          f"{PRETRAIN_TASKS} and one validation: {wall:.1f}s; launches "
+          f"{launches}")
+    n_val = len(PRETRAIN_TASKS)
+    require(state.step == PRETRAIN_UPDATES
+            and launches["grid_pool_fwd"] == PRETRAIN_UPDATES + n_val
+            and launches["grid_pool_bwd1"] == PRETRAIN_UPDATES
+            and launches["grid_pool_bwd2"] == PRETRAIN_UPDATES,
+            "pretrain CLI: K1 not once per update and validated task, or "
+            "K5a/K5b not once per update")
+    require((out_dir / "run" / "ckpts" / "navigator_latest").exists(),
+            "pretrain CLI wrote no navigator checkpoint")
+    res["cli"] = {"wall_s": wall, "launches": launches,
+                  "updates": PRETRAIN_UPDATES}
+
+    # one accumulation window of 2 microbatches
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    acc_state = pretrain_cli(["--tasks", "sap", "--mix_ratio", "1",
+                              "--steps", "1", "--accum_steps", "2",
+                              "--valid_every", "1"], out_dir / "accum")
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"  cli/pretrain.main --accum_steps 2, one window of sap: "
+          f"{time.time() - t0:.1f}s; launches {launches}")
+    require(acc_state.step == 1 and acc_state.optimizer.count == 1
+            and launches["grid_pool_fwd"] == 3
+            and launches["grid_pool_bwd1"] == 2
+            and launches["grid_pool_bwd2"] == 2,
+            "accumulation window: not one update over two microbatches")
+    res["accum_window"] = {"launches": launches}
+    del acc_state
+
+    # 3 updates of each task on one fixed batch, dropout off
+    batch = synthetic_pretrain_batch(cfg, PRETRAIN_B, PRETRAIN_S, seed=0,
+                                     device="cuda")
+    state.model.eval()
+    res["fixed_batch"] = {}
+    for task in PRETRAIN_TASKS:
+        step = make_pretrain_step(cfg, task)
+        torch.cuda.synchronize()
+        reset_counts()
+        losses = [step(state, batch)[f"loss_{task}"].item()
+                  for _ in range(PRETRAIN_UPDATES)]
+        torch.cuda.synchronize()
+        launches = counts()
+        print(f"  {task}: {PRETRAIN_UPDATES} updates on one batch, losses "
+              f"{[round(x, 6) for x in losses]}; launches {launches}")
+        require(np.isfinite(losses).all(), f"{task}: loss not finite")
+        require(all(a > b for a, b in zip(losses, losses[1:])),
+                f"{task}: the loss did not fall on one batch")
+        require(all(launches[k] == PRETRAIN_UPDATES for k in (
+            "grid_pool_fwd", "grid_pool_bwd1", "grid_pool_bwd2")),
+            f"{task}: K1, K5a, K5b not once per update")
+        res["fixed_batch"][task] = {"losses": losses, "launches": launches}
+
+    # the first update's loss and gradients, kernels vs plain ops, on
+    # freshly seeded weights (see GRAD_SEED), dropout off
+    model = init_pretrain_params(cfg.model, seed=GRAD_SEED, device="cuda")
+    res["vs_plain"] = {}
+    for task in PRETRAIN_TASKS:
+        loss_k, grads_k = pretrain_loss_and_grads(model, batch, task)
+        with plain_ops(), reproducible_reference():
+            loss_p, grads_p = pretrain_loss_and_grads(model, batch, task)
+        require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
+                f"{task} loss, kernels {loss_k} vs plain ops {loss_p}")
+        worst = compare_grads(grads_k, grads_p, 1e-3,
+                              f"pretrain {task}, kernels vs plain ops")
+        print(f"  {task}, kernels vs plain ops: loss {loss_k:.6f} vs "
+              f"{loss_p:.6f} (1e-5 relative); {len(grads_p)} gradient "
+              f"leaves, worst max|diff| / max|leaf| {worst:.3e} (bound "
+              f"1e-3)")
+        res["vs_plain"][task] = {"loss_kernels": loss_k,
+                                 "loss_plain_ops": loss_p,
+                                 "worst_grad_diff": worst}
+        del grads_k, grads_p
+    del model
+    res["tiny_card_vs_cpu"] = tiny_pretrain_cpu_reference()
+    report["pretrain"] = res
+    return state, batch, cfg
+
+
+def tiny_pretrain_cpu_reference():
+    """One update of each of the four tasks at tiny width (OG with object
+    tokens) on the card (kernels) against the same update on the CPU
+    (plain versions): loss and grad norm within 1e-4 relative, gradients
+    within 1e-3 of each leaf's max. Returns the worst ratio per task."""
+    tcfg = tiny_config()
+    cfg = dataclasses.replace(tcfg, model=dataclasses.replace(
+        tcfg.model, image_prob_size=32,
+        obj_feat_size=tcfg.model.image_feat_size))
+    base = with_objects(synthetic_pretrain_batch(cfg, 2, 3, seed=2,
+                                                 device="cpu"))
+    worst = {}
+    for task in ("mlm", "mrc", "sap", "og"):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model = init_pretrain_params(cfg.model, seed=4, device=dev)
+            state = create_train_state(cfg, model)
+            m = make_pretrain_step(cfg, task)(
+                state, PretrainBatch(*(t.to(dev) for t in base)))
+            out[dev] = (m[f"loss_{task}"].item(), m["grad_norm"].item(),
+                        {n: p.grad.cpu() for n, p in model.named_parameters()
+                         if p.grad is not None})
+        for i, name in enumerate(("loss", "grad norm")):
+            require(abs(out["cuda"][i] - out["cpu"][i])
+                    <= 1e-4 * abs(out["cpu"][i]),
+                    f"tiny {task} {name}: {out['cuda'][i]} vs "
+                    f"{out['cpu'][i]}")
+        worst[task] = compare_grads(out["cuda"][2], out["cpu"][2], 1e-3,
+                                    f"tiny {task}, card vs CPU")
+    print(f"  tiny pretrain updates (OG with objects), card (kernels) vs "
+          f"CPU (plain): worst gradient max|diff| / max|leaf| "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} } (bound "
+          f"1e-3)")
+    return worst
+
+
+def direct_state(sd, rules, keys):
+    """A reference-layout state dict put straight onto the port's keys,
+    without the importer: a reference nn.Linear weight is (out, in), as the
+    port's is, so nothing is transposed; an in_proj weight's row blocks
+    are q, k and v. The yardstick for import_torch_navigator, whose rules
+    go through the flax layout and back."""
+    out = {}
+    for src, dst, tf in rules:
+        key = torch_name(dst.split("/"))
+        if src not in sd or key not in keys:
+            continue
+        v = torch.as_tensor(np.asarray(sd[src], np.float32))
+        if tf in ("Q", "K", "V", "Qb", "Kb", "Vb"):
+            v = v.chunk(3, dim=0)["QKV".index(tf[0])]
+        out[key] = v.clone()
+    return out
+
+
+def checkpoint_import_path(report, cfg, rows, texts, dev_name):
+    """(d) released-checkpoint import at r2r width: a reference-layout
+    navigator state dict synthesized from seed 11, nested as grid_map.pt
+    is, imported (import_torch_navigator) and served by the graphed create
+    engine against an engine loaded with the same weights directly;
+    export_serving --navigator_ckpt on that file, served from the bundle;
+    a pretrain-layout dict through remap_pretrain_to_navigator, served the
+    same way. Logits within 1e-5 x max|logit|."""
+    m = cfg.model
+    kw = dict(num_l_layers=m.num_l_layers, num_x_layers=m.num_x_layers,
+              num_pano_layers=m.num_pano_layers, has_obj=m.obj_feat_size > 0)
+    rules = CK.navigator_rules(**kw)
+    with torch.device("meta"):      # shapes only
+        shapes = nav_mod.GridMMNavigator(m)
+        pre_shapes = GridMMPretrain(m)
+    keys = set(shapes.state_dict())
+    sd = CK.synthesize_torch_state_dict(rules, shapes, seed=IMPORT_SEED)
+    work = ROOT / "runs" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / "grid_map.pt"
+    torch.save({"vln_bert": {"epoch": 0, "optimizer": {}, "state_dict": {
+        "module.vln_bert." + k: torch.from_numpy(v) for k, v in sd.items()}},
+        "critic": {"state_dict": {}}}, str(path))
+    res = {}
+
+    def serve_pair(what, imported, direct):
+        torch.cuda.synchronize()
+        reset_counts()
+        got, eng = run_engine(imported, cfg, rows, texts)
+        torch.cuda.synchronize()
+        launches = path_launches(counts(), [eng])
+        want, _ = run_engine(direct, cfg, rows, texts)
+        diff, bits = compare_logits(got, want, what)
+        print(f"  {what}: imported vs loaded directly, graphed create "
+              f"engines, {len(got)} steps: max|diff| {diff:.3e} (equal "
+              f"bits: {bits}; tolerance {LOGIT_BITS_TOL} x max|logit|); "
+              f"launches {launches}")
+        require(launches["grid_pool_fwd"] == FIRST_STEPS + LATER_STEPS + 1,
+                f"{what}: K1 launched {launches['grid_pool_fwd']} times")
+        return got, {"max_abs_diff": diff, "equal_bits": bits,
+                     "launches": launches}
+
+    imported = init_navigator(m, seed=5, device="cuda")
+    t0 = time.time()
+    parity_eval_mod.import_navigator_checkpoint(str(path), imported, cfg,
+                                                "finetune")
+    import_s = time.time() - t0
+    direct = init_navigator(m, seed=6, device="cuda")
+    direct.load_state_dict(direct_state(sd, rules, keys), strict=True)
+    live_logits, res["finetune"] = serve_pair(
+        "grid_map.pt (module.vln_bert.)", imported, direct)
+    res["finetune"]["import_s"] = import_s
+    del direct
+
+    # export_serving --navigator_ckpt on the same file, then from_bundle
+    out_dir = ROOT / "chiprun_out" / "smoke_import_bundle"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.time()
+    man = export_cli_mod.main(["--config", "r2r", "--batch",
+                               str(SERVE_SLOTS), "--navigator_ckpt",
+                               str(path), "--out_dir", str(out_dir),
+                               "--device", "cuda"])
+    export_s = time.time() - t0
+    require(man["weights"] == "navigator.pt", f"manifest {man}")
+    shipped = {k: v.to("cuda") for k, v in CK.restore_checkpoint(
+        str(out_dir / man["weights"])).items()}
+    require(all(torch.equal(shipped[k], v)
+                for k, v in imported.state_dict().items()),
+            "the bundle's navigator.pt differs from the import")
+    torch.cuda.synchronize()
+    reset_counts()
+    served, eng = run_engine(
+        None, cfg, rows, texts, make=lambda: NavServingEngine.from_bundle(
+            str(out_dir), cfg, shipped, SERVE_SLOTS))
+    torch.cuda.synchronize()
+    launches = path_launches(counts(), [eng])
+    diff, bits = compare_logits(served, live_logits,
+                                "from_bundle vs create, imported weights")
+    print(f"  export_serving --navigator_ckpt ({export_s:.1f}s, "
+          f"manifest weights {man['weights']}) -> from_bundle vs create: "
+          f"max|diff| {diff:.3e} (equal bits: {bits}); launches {launches}")
+    require(launches["grid_pool_fwd"] == FIRST_STEPS + LATER_STEPS + 1,
+            f"bundle: K1 launched {launches['grid_pool_fwd']} times")
+    res["bundle"] = {"export_s": export_s, "max_abs_diff": diff,
+                     "equal_bits": bits, "launches": launches}
+    for p in out_dir.glob("*.pt*"):
+        p.unlink()   # the manifest stays
+    del eng, shipped, imported
+
+    # a pretrain-layout dict (model_step_N.pt) through
+    # remap_pretrain_to_navigator
+    psd = CK.synthesize_torch_state_dict(CK.pretrain_rules(**kw), pre_shapes,
+                                         seed=IMPORT_SEED)
+    remapped = CK.remap_pretrain_to_navigator(
+        {"module." + k: v for k, v in psd.items()})
+    imported = init_navigator(m, seed=7, device="cuda")
+    out, rep = CK.import_torch_navigator(remapped, imported, **kw)
+    CK.require_navigator_coverage(rep, what="pretrain navigator")
+    imported.load_state_dict(out, strict=True)
+    direct = init_navigator(m, seed=8, device="cuda")
+    direct.load_state_dict(direct_state(remapped, rules, keys), strict=True)
+    _, res["pretrain_layout"] = serve_pair(
+        "model_step_N.pt (bert.) via remap_pretrain_to_navigator",
+        imported, direct)
+    path.unlink()
+    report["checkpoint_import"] = res
+    del imported, direct
+
+
 # --------------------------------------------------- (e) training times
 def bwd_bytes(g, cells):
     """Bytes pass 1 must move: the features of valid points, every gradient
@@ -1704,6 +2070,45 @@ def time_train_update(state, step, batch, dev_name):
           f"held before the update (weights, AdamW moments, the batch and "
           f"earlier phases' models) [{dev_name}]")
     return res
+
+
+def time_pretrain_updates(state, cfg, batch, dev_name):
+    """(e) ms per pretraining update of each task at r2r width (8 x 21,
+    12,416-point buffer, f32, dropout on as the CLI trains): host clock
+    around a synchronised update and CUDA-event time on the stream, median
+    of 3 after one warm-up, and each task's peak device memory."""
+    state.model.train()
+    out = {}
+    for task in PRETRAIN_TASKS:
+        step = make_pretrain_step(cfg, task)
+        step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        host_ms, event_ms = [], []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            event_ms.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        out[task] = {"host_ms": host_ms, "event_ms": event_ms,
+                     "host_ms_median": float(np.median(host_ms)),
+                     "event_ms_median": float(np.median(event_ms)),
+                     "peak_device_bytes": peak, "held_before_bytes": held}
+        print(f"  pretrain update, {task}, {PRETRAIN_B} x {PRETRAIN_S} at "
+              f"r2r width, f32: host clock median "
+              f"{out[task]['host_ms_median']:.1f} ms "
+              f"{[round(x, 1) for x in host_ms]}, CUDA events "
+              f"{[round(x, 1) for x in event_ms]} ms; peak device memory "
+              f"{peak / 2**30:.3f} GiB, of which {held / 2**30:.3f} GiB "
+              f"were held before the update [{dev_name}]")
+    return out
 
 
 # ------------------------------------------------------- (e) encoder times
@@ -1951,9 +2356,16 @@ def main() -> int:
     real_data_path(report)
     live, eager, served = bundle_path(report, cfg, rows, texts, dev_name)
     phase_s["d_real_data_and_bundle"] = time.time() - t_phase
+    t_phase = time.time()
+    print("(d) main path: pretraining at r2r width (cli/pretrain.main, "
+          "12,416-point buffer) and released-checkpoint import")
+    pre_state, pre_batch, pre_cfg = pretraining_path(report)
+    checkpoint_import_path(report, cfg, rows, texts, dev_name)
+    phase_s["d_pretrain_and_import"] = time.time() - t_phase
     print(f"    phase (d): {phase_s['d_before_real_data']:.1f}s, then "
           f"{phase_s['d_real_data_and_bundle']:.1f}s for real data and the "
-          f"bundle")
+          f"bundle, {phase_s['d_pretrain_and_import']:.1f}s for "
+          f"pretraining and the import")
 
     # (e) times
     t_phase = time.time()
@@ -1997,6 +2409,22 @@ def main() -> int:
     del g, c, w
     timing["train_update"] = time_train_update(train_state, train_step,
                                                train_batch, dev_name)
+    del train_state, train_step, train_batch
+    # the pretraining buffer, forward and backward: 21 x 588 points filled
+    # of 12,416, 5% of them invalid
+    g, c, w = pool_case("random", PRETRAIN_B, torch.float32, seed=7,
+                        n=PRETRAIN_N)
+    c[:, PRETRAIN_S * 588:] = -1
+    label = (f"B={PRETRAIN_B} N={PRETRAIN_N} D=768 f32 ({PRETRAIN_S * 588} "
+             f"filled, 5% of them invalid)")
+    timing["pretrain_B8_f32"] = time_pool(g, c, w, "pretrain " + label,
+                                          dev_name)
+    timing["pretrain_bwd1"], timing["pretrain_bwd2"] = time_pool_bwd(
+        g, c, w, label, dev_name)
+    del g, c, w
+    timing["pretrain_update"] = time_pretrain_updates(pre_state, pre_cfg,
+                                                      pre_batch, dev_name)
+    del pre_state, pre_batch
     report["timing"] = timing
     for name, key in (("grid_pool_fwd", "main_path_B4_f32"),
                       ("layernorm_fwd", "layernorm_fwd"),
@@ -2007,6 +2435,15 @@ def main() -> int:
         for field in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms"):
             report[name][field] = timing[key][field]
+    # the pretraining path's launches (its multi-task CLI run) and times
+    for name, key in (("grid_pool_fwd", "pretrain_B8_f32"),
+                      ("grid_pool_bwd1", "pretrain_bwd1"),
+                      ("grid_pool_bwd2", "pretrain_bwd2")):
+        report[name]["pretrain"] = {
+            "launches": report["pretrain"]["cli"]["launches"][name],
+            **{f: timing[key][f] for f in ("shape", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")}}
     report["throughput"] = time_encode_and_pipeline(ex, clip_model,
                                                     pipe_cfg, dev_name)
 
@@ -2018,6 +2455,8 @@ def main() -> int:
           f"[{dev_name}]")
     phase_s["e"] = time.time() - t_phase
     print(f"    phase (e): {phase_s['e']:.1f}s")
+    print("(d, last) a serving step that cannot be captured")
+    report["bundle"]["failed_capture"] = check_failed_capture(cfg)
     report["phase_s"] = phase_s
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2029,7 +2468,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {key: report[k.name][key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "pretrain") if key in report[k.name]}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ checkpoint, writes `language.pt2` + `nav_step.pt2` + `manifest.json`,
 `torch.export` programs that a host loads and calls without the model code
 (see gridmm_tpu_torch/utils/export.py; serve them with
 `NavServingEngine.from_bundle`). The programs take the weights as an input
-and hold none. Examples:
+and hold none; with --navigator_ckpt the imported weights are written
+beside them as `navigator.pt` (a state dict; the manifest names it under
+"weights"). Examples:
 
   # tiny smoke export on the CPU
   python -m gridmm_tpu_torch.cli.export_serving --tiny --device cpu \\
@@ -15,6 +17,10 @@ and hold none. Examples:
   # R2R programs for serving 4 slots on the card
   python -m gridmm_tpu_torch.cli.export_serving --config r2r --batch 4 \\
       --out_dir runs/bundle_r2r
+
+  # the same for a released fine-tune checkpoint (grid_map.pt)
+  python -m gridmm_tpu_torch.cli.export_serving --config r2r --batch 4 \\
+      --navigator_ckpt ckpts/grid_map.pt --out_dir runs/bundle_released
 """
 
 from __future__ import annotations
@@ -23,6 +29,9 @@ import argparse
 import dataclasses
 import json
 import os
+
+# the imported weights beside the programs (--navigator_ckpt)
+WEIGHTS_FILE = "navigator.pt"
 
 
 def parse_args(argv=None):
@@ -44,7 +53,8 @@ def parse_args(argv=None):
     p.add_argument("--int8", action="store_true",
                    help="int8 trunk matmuls (not ported yet)")
     p.add_argument("--navigator_ckpt", default=None,
-                   help="released torch checkpoint (not ported yet)")
+                   help="released torch checkpoint (grid_map/finetune "
+                        "format); supersedes --resume")
     p.add_argument("--mesh", choices=["auto"], default=None,
                    help="multi-device export (not ported yet)")
     p.add_argument("--mp_size", type=int, default=1,
@@ -58,9 +68,6 @@ def parse_args(argv=None):
 def _check_ported(args) -> None:
     waits = (
         (args.int8, "--int8", "ops/quant.py (ROADMAP Queue 1, int8 matmuls)"),
-        (args.navigator_ckpt, "--navigator_ckpt",
-         "utils/checkpoint.import_torch_navigator (ROADMAP Queue 1, "
-         "released-checkpoint importers)"),
         (args.mesh, "--mesh", "parallel/mesh.py (ROADMAP Queue 1, parallel "
          "layer)"),
         (args.mp_size != 1, "--mp_size", "parallel/mesh.py (ROADMAP Queue 1, "
@@ -94,7 +101,15 @@ def main(argv=None):
                 max_points=args.max_action_len * cfg.grid.points_per_step))
 
     model = init_navigator(cfg.model, seed=args.seed, device=args.device)
-    if args.resume:
+    extra = {}
+    if args.navigator_ckpt:
+        from gridmm_tpu_torch.cli.parity_eval import \
+            import_navigator_checkpoint
+
+        import_navigator_checkpoint(args.navigator_ckpt, model, cfg,
+                                    "finetune", what="serving navigator")
+        extra["weights"] = WEIGHTS_FILE
+    elif args.resume:
         from gridmm_tpu_torch.utils.checkpoint import restore_checkpoint
 
         restore_checkpoint(os.path.abspath(args.resume), model)
@@ -104,7 +119,12 @@ def main(argv=None):
         exports, args.out_dir, cfg=cfg,
         extra_manifest={"batch": args.batch,
                         "config": "tiny" if args.tiny else args.config,
-                        "int8": False})
+                        "int8": False, **extra})
+    if args.navigator_ckpt:
+        from gridmm_tpu_torch.utils.checkpoint import save_checkpoint
+
+        save_checkpoint(os.path.join(args.out_dir, WEIGHTS_FILE),
+                        model.state_dict())
     print(json.dumps(manifest))
     return manifest
 

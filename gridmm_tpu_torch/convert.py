@@ -49,6 +49,36 @@ def torch_name(path) -> str:
     return ".".join(parts)
 
 
+def flax_paths(model: torch.nn.Module) -> Dict[str, str]:
+    """The inverse of `torch_name` on one module: {state_dict key: flax
+    path} for every parameter, the path "/"-joined (a ModuleList entry
+    `name.<k>` is `name_<k>`; a Linear weight is the (in, out) `kernel`, a
+    LayerNorm of the port's its `ln/scale` and `ln/bias`, an Embedding
+    weight its `embedding`)."""
+    from gridmm_tpu_torch.models.layers import LayerNorm
+
+    out: Dict[str, str] = {}
+    for mod_name, mod in model.named_modules():
+        parts = []
+        for part in mod_name.split(".") if mod_name else ():
+            if part.isdigit():
+                parts[-1] = f"{parts[-1]}_{part}"
+            else:
+                parts.append(part)
+        for leaf, _ in mod.named_parameters(recurse=False):
+            key = f"{mod_name}.{leaf}" if mod_name else leaf
+            if isinstance(mod, LayerNorm):
+                path = parts + ["ln", {"weight": "scale"}.get(leaf, leaf)]
+            elif isinstance(mod, torch.nn.Embedding):
+                path = parts + ["embedding"]
+            elif isinstance(mod, torch.nn.Linear) and leaf == "weight":
+                path = parts + ["kernel"]
+            else:
+                path = parts + [leaf]
+            out[key] = "/".join(path)
+    return out
+
+
 def flax_to_state_dict(params: Mapping, model: torch.nn.Module
                        ) -> Dict[str, torch.Tensor]:
     """Converted tensors for `model.load_state_dict`; raises on any

@@ -310,15 +310,18 @@ class PreNormEncoder(nn.Module):
 
 
 class ClsPrediction(nn.Module):
-    """linear -> ReLU -> LN -> linear(1) head (vilmodel.py:663-674); the
-    Sequential indices are the flax names net_0 / net_2 / net_3."""
+    """linear -> ReLU -> LN -> linear(output_size) head (vilmodel.py:663-674;
+    with output_size > 1 pretraining's RegionClassification,
+    pretrain_cmt.py:12-22); the Sequential indices are the flax names
+    net_0 / net_2 / net_3."""
 
-    def __init__(self, cfg: ModelConfig, input_size: Optional[int] = None):
+    def __init__(self, cfg: ModelConfig, input_size: Optional[int] = None,
+                 output_size: int = 1):
         super().__init__()
         hs = cfg.hidden_size
         self.net = nn.Sequential(
             Dense(input_size or hs, hs, cfg.dtype), nn.ReLU(),
-            LayerNorm(hs, 1e-12), Dense(hs, 1, cfg.dtype))
+            LayerNorm(hs, 1e-12), Dense(hs, output_size, cfg.dtype))
 
     def forward(self, x):
         return self.net(x)

@@ -127,9 +127,14 @@ class Critic(nn.Module):
 
 
 class GridMMNavigator(nn.Module):
-    """The flagship model; parameter names mirror the JAX package's tree."""
+    """The flagship model; parameter names mirror the JAX package's tree.
 
-    def __init__(self, cfg: ModelConfig):
+    `local_lang_branch` builds the local encoder's language branch
+    (`CrossmodalEncoder.lang2visn`), which only pretraining's MLM runs
+    (models/pretrain.py); navigation never calls it, and flax creates its
+    parameters only where it runs."""
+
+    def __init__(self, cfg: ModelConfig, local_lang_branch: bool = False):
         super().__init__()
         self.cfg = cfg
         hs, dt = cfg.hidden_size, cfg.dtype
@@ -143,7 +148,7 @@ class GridMMNavigator(nn.Module):
         self.vp_pos_dense = Dense(2 * cfg.angle_feat_size + 6, hs, dt)
         self.vp_pos_ln = LayerNorm(hs, 1e-12)
         self.local_encoder = CrossmodalEncoder(cfg, cfg.num_x_layers,
-                                               lang_branch=False)
+                                               lang_branch=local_lang_branch)
         # global branch (GlobalMapEncoder, vilmodel.py:577-660)
         self.gmap_pos_dense = Dense(cfg.angle_feat_size + 3, hs, dt)
         self.gmap_pos_ln = LayerNorm(hs, 1e-12)
@@ -211,6 +216,31 @@ class GridMMNavigator(nn.Module):
                                         txt_relevance_mask)
         return self.encode_grid_prepooled(g, w, grid_cells, gridmap_pos_fts)
 
+    def encode_map(self, txt_embeds, txt_mask, grid_embeds, cell_mask,
+                   gmap_embeds, gmap_mask, stray_count=None):
+        """The map encoder over [cells (+ stray token) || gmap tokens], then
+        its cross-attention to the text (vilmodel.py:837-845). Returns
+        (map_embeds, map_mask, key_bias); key_bias is None without strays
+        (see fusion_trunk)."""
+        b = grid_embeds.shape[0]
+        key_bias = None
+        if stray_count is not None:
+            zero_tok = grid_embeds.new_zeros((b, 1, grid_embeds.shape[-1]))
+            grid_embeds = torch.cat([grid_embeds, zero_tok], dim=1)
+            cell_mask = torch.cat([cell_mask, (stray_count > 0)[:, None]],
+                                  dim=1)
+            key_bias = grid_embeds.new_zeros(
+                (b, grid_embeds.shape[1] + gmap_mask.shape[1]), dtype=_F32)
+            key_bias[:, grid_embeds.shape[1] - 1] = torch.log(
+                torch.clamp(stray_count.float(), min=1.0))
+        map_embeds = torch.cat([grid_embeds, gmap_embeds], dim=1)
+        map_mask = torch.cat([cell_mask, gmap_mask], dim=1)
+        map_embeds = self.grid_encoder(map_embeds, map_mask,
+                                       key_bias=key_bias)
+        map_embeds = self.grid_txt_encoder(txt_embeds, txt_mask, map_embeds,
+                                           map_mask, img_key_bias=key_bias)
+        return map_embeds, map_mask, key_bias
+
     def fusion_trunk(self, txt_embeds, txt_mask, grid_embeds, cell_mask,
                      gmap_embeds, gmap_mask, vp_embeds, vp_mask,
                      stray_count=None):
@@ -223,24 +253,10 @@ class GridMMNavigator(nn.Module):
 
         Returns (map_embeds, gmap_out, vp_out)."""
         b = grid_embeds.shape[0]
-        key_bias = None
-        if stray_count is not None:
-            zero_tok = grid_embeds.new_zeros((b, 1, grid_embeds.shape[-1]))
-            grid_embeds = torch.cat([grid_embeds, zero_tok], dim=1)
-            cell_mask = torch.cat([cell_mask, (stray_count > 0)[:, None]],
-                                  dim=1)
-            key_bias = grid_embeds.new_zeros(
-                (b, grid_embeds.shape[1] + gmap_mask.shape[1]), dtype=_F32)
-            key_bias[:, grid_embeds.shape[1] - 1] = torch.log(
-                torch.clamp(stray_count.float(), min=1.0))
-        num_cells = grid_embeds.shape[1]
-        map_embeds = torch.cat([grid_embeds, gmap_embeds], dim=1)
-        map_mask = torch.cat([cell_mask, gmap_mask], dim=1)
-        map_embeds = self.grid_encoder(map_embeds, map_mask,
-                                       key_bias=key_bias)
-        map_embeds = self.grid_txt_encoder(txt_embeds, txt_mask, map_embeds,
-                                           map_mask, img_key_bias=key_bias)
-        gmap_embeds = map_embeds[:, num_cells:]
+        map_embeds, map_mask, key_bias = self.encode_map(
+            txt_embeds, txt_mask, grid_embeds, cell_mask, gmap_embeds,
+            gmap_mask, stray_count)
+        gmap_embeds = map_embeds[:, -gmap_mask.shape[1]:]
 
         kv_embeds = torch.cat([map_embeds, txt_embeds], dim=1)
         kv_mask = torch.cat([map_mask, txt_mask], dim=1)

@@ -65,6 +65,17 @@ def _kernel_launches() -> Dict[str, int]:
     return {GRID_POOL_FWD.name: GRID_POOL_FWD.launches}
 
 
+def _end_generator_capture(device) -> None:
+    """A capture that fails ends before CUDA's default generator leaves its
+    capture state, and every later random op on the card (dropout) then
+    raises "Offset increment outside graph capture". One capture that
+    completes puts the generator back."""
+    graph = torch.cuda.CUDAGraph()
+    x = torch.zeros(1, device=device)
+    with torch.cuda.graph(graph):
+        x.add_(1.0)
+
+
 class NavServingEngine:
     """Fixed-slot continuous batching over the navigator's step."""
 
@@ -196,6 +207,7 @@ class NavServingEngine:
             with torch.inference_mode(), torch.cuda.graph(graph):
                 out = self._run_step()
         except Exception as e:
+            _end_generator_capture(dev)
             raise RuntimeError("CUDA-graph capture of the serving step "
                                "failed; the engine does not run eager in "
                                "its place (cuda_graph=False asks for "

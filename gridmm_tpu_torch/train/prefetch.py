@@ -19,15 +19,16 @@ import torch
 
 
 def _map_tensors(tree: Any, fn):
-    """Apply `fn` to every array leaf of nested tuples/NamedTuples/dicts."""
+    """Apply `fn` to every array leaf of nested tuples/NamedTuples/dicts;
+    strings (a task name beside its batch) and None pass through."""
     if isinstance(tree, dict):
         return {k: _map_tensors(v, fn) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(_map_tensors(v, fn) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(_map_tensors(v, fn) for v in tree)
-    if tree is None:
-        return None
+    if tree is None or isinstance(tree, str):
+        return tree
     return fn(torch.as_tensor(tree))
 
 
@@ -36,11 +37,15 @@ def device_prefetch(batches: Iterable, size: int = 2,
     """Wrap a host batch iterator; yields batches resident on `device`.
 
     `size` bounds the number of staged batches (device memory x size). A
-    producer error is raised in the consumer."""
+    producer error is raised in the consumer. When the consumer stops early
+    (a loop that breaks, an exception, a generator closed or collected), the
+    producer thread stops within a tick of its bounded wait and the staged
+    batches are released."""
     device = torch.device(device)
     on_card = device.type == "cuda"
     q: "queue.Queue" = queue.Queue(maxsize=size)
     end = object()
+    stop = threading.Event()
     err: list = []
 
     def stage(batch):
@@ -55,27 +60,49 @@ def device_prefetch(batches: Iterable, size: int = 2,
             done.record(stream)
         return staged, done
 
+    def put(item) -> bool:
+        # bounded waits: an abandoned consumer cannot leave this thread
+        # blocked on a full queue for good (stop is checked every tick)
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
     def producer():
         try:
             for batch in batches:
-                q.put(stage(batch))
+                if stop.is_set() or not put(stage(batch)):
+                    return
         except Exception as e:  # handed to the consumer, which raises it
             err.append(e)
         finally:
-            q.put(end)
+            put(end)
 
-    threading.Thread(target=producer, daemon=True).start()
-    while True:
-        item = q.get()
-        if item is end:
-            if err:
-                raise err[0]
-            return
-        staged, done = item
-        if done is not None:
-            cur = torch.cuda.current_stream(device)
-            cur.wait_event(done)
-            # allocated on the copy stream, read on this one: the allocator
-            # must not hand the memory out again before this stream is done
-            _map_tensors(staged, lambda t: t.record_stream(cur))
-        yield staged
+    threading.Thread(target=producer, daemon=True,
+                     name="device_prefetch").start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                if err:
+                    raise err[0]
+                return
+            staged, done = item
+            if done is not None:
+                cur = torch.cuda.current_stream(device)
+                cur.wait_event(done)
+                # allocated on the copy stream, read on this one: the
+                # allocator must not hand the memory out again before this
+                # stream is done
+                _map_tensors(staged, lambda t: t.record_stream(cur))
+            yield staged
+    finally:
+        stop.set()
+        while True:  # release the staged batches now
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break

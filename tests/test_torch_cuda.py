@@ -594,7 +594,9 @@ def test_graphed_serving_step_matches_eager():
 @pytest.mark.cuda
 def test_graph_capture_failure_raises():
     """A step that waits on the host cannot be captured: the engine raises
-    and does not run eager in its place."""
+    and does not run eager in its place; dropout on the card still draws
+    afterwards (a failed capture must not leave CUDA's default generator in
+    its capture state)."""
     _require_card()
     from gridmm_tpu_torch.config import tiny_config
     from gridmm_tpu_torch.models.navigator import init_navigator
@@ -613,6 +615,9 @@ def test_graph_capture_failure_raises():
         NavServingEngine(cfg, 2, lang_fn=lambda i, m: model(
             "language", {"txt_ids": i, "txt_mask": m}),
             step_fn=syncing_step, device="cuda")
+    kept = torch.nn.functional.dropout(torch.ones(1 << 16, device="cuda"),
+                                       0.5, True)
+    assert 0.45 < (kept > 0).float().mean().item() < 0.55
 
 
 @pytest.mark.cuda

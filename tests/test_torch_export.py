@@ -294,7 +294,6 @@ def test_export_serving_cli_writes_a_bundle(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,what", [
     (["--int8"], "ops/quant.py"),
-    (["--navigator_ckpt", "grid_map.pt"], "import_torch_navigator"),
     (["--mesh", "auto"], "parallel/mesh.py"),
     (["--mp_size", "2"], "parallel/mesh.py"),
     (["--fsdp"], "parallel/mesh.py")])

@@ -539,3 +539,34 @@ def test_train_step_dropout_is_seeded_and_replayed_under_remat(tiny):
     assert a == b
     assert a[0] == c[0] and a[1] == pytest.approx(c[1], rel=1e-5)
     assert a[0] != d[0]
+
+
+def test_device_prefetch_thread_ends_when_the_consumer_stops_early():
+    """A consumer that takes one batch and drops the generator (a loop that
+    breaks, an exception): the producer, blocked on a full queue, ends
+    within 5 s and the staged batches are released."""
+    import gc
+    import threading
+    import time
+
+    from gridmm_tpu_torch.train.prefetch import device_prefetch
+
+    def endless():
+        i = 0
+        while True:
+            yield {"x": torch.full((4,), float(i))}
+            i += 1
+
+    before = {t for t in threading.enumerate() if t.name == "device_prefetch"}
+    it = device_prefetch(endless(), size=2, device="cpu")
+    first = next(it)
+    assert float(first["x"][0]) == 0.0
+    mine = [t for t in threading.enumerate()
+            if t.name == "device_prefetch" and t not in before]
+    assert len(mine) == 1
+    time.sleep(0.3)            # the producer fills the queue and waits
+    it.close()
+    del it
+    gc.collect()
+    mine[0].join(timeout=5.0)
+    assert not mine[0].is_alive()
