@@ -26,7 +26,12 @@ the point buffers with 15 steps, then:
     warm-up, then traces one more: launches, device time by operator and
     the device-busy share of the update;
   * does the same for one pretraining update of each task (mlm, mrc, sap)
-    at r2r width on the 12,416-point buffer, 8 trajectories x 21 steps.
+    at r2r width on the 12,416-point buffer, 8 trajectories x 21 steps;
+  * builds the full VLN-CE agent (r2r_ce_config() navigator, ResNet50 and
+    ddppo towers, clip_b32 and the ViT-B/16 view tower) and traces one
+    fused CE step for 4 envs (perception, candidates, step assembly,
+    navigation) after a warm-up, then one CE update on a recorded batch
+    of 4 envs x 20 steps after a warm-up update.
 
 The encode's and the pipeline's tables are followed by LayerNorm's launches
 and device time per launch.
@@ -53,10 +58,13 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (CLIP_BATCH, PIPE_PANOS, SERVE_SLOTS, VIEWS,
+from chip_smoke import (CE_SEED, CE_STEPS, CLIP_BATCH, PIPE_PANOS,
+                        SERVE_SLOTS, VIEWS, ce_env,
                         attn_atol, bwd_inputs, card, copies_for, cuda_ms,
                         pipeline_inputs, pool_case, request_text, require,
                         rotating_ms, step_row)
+from gridmm_tpu_torch.ce.factory import build_ce_agent
+from gridmm_tpu_torch.ce.trainer import CETrainer
 from gridmm_tpu_torch.config import r2r_config
 from gridmm_tpu_torch.data.preprocess import ClipFeatureExtractor
 from gridmm_tpu_torch.models.clip_vit import clip_b32
@@ -76,7 +84,8 @@ from gridmm_tpu_torch.utils.export import (export_navigator_serving,
 from gridmm_tpu_torch.cli import pretrain as pretrain_cli
 from gridmm_tpu_torch.train.pretrain import (init_pretrain_params,
                                              make_pretrain_step)
-from gridmm_tpu_torch.train.step import create_train_state, make_train_step
+from gridmm_tpu_torch.train.step import (batch_to_device, create_train_state,
+                                         init_carry, make_train_step)
 from gridmm_tpu_torch.train.synthetic import (synthetic_pretrain_batch,
                                               synthetic_trajectory_batch)
 
@@ -338,6 +347,71 @@ def ab_kernels(other_root: Path, dev_name: str) -> dict:
     return result
 
 
+def ce_profile(out):
+    """One fused CE step (4 envs, full width, view tower) and one CE update
+    (4 envs x 20 steps, dropout off), each traced after a warm-up."""
+    cfg, agent = build_ce_agent(tiny=False, view_tower=True, seed=CE_SEED,
+                                device="cuda")
+    env = ce_env(5)
+    dev = agent.device
+    with agent.inference():
+        obs = env.reset()
+        b, cap = env.num_envs, cfg.model.max_action_steps
+        ids, mask = agent.language_batch(obs)
+        mask = torch.from_numpy(mask).to(dev)
+        txt = agent.language(torch.from_numpy(ids).to(dev), mask)
+        rgb, depth = agent.observation_tensors(obs)
+        pos = torch.from_numpy(np.stack([ob.position for ob in obs]).astype(
+            np.float32)).to(dev)
+        heading = torch.tensor([ob.heading for ob in obs],
+                               dtype=torch.float32, device=dev)
+        traj_pos = torch.zeros((b, cap, 3), device=dev)
+        traj_pos[:, 0, 0], traj_pos[:, 0, 2] = pos[:, 0], pos[:, 1]
+        traj_dist = torch.zeros((b, cap), device=dev)
+        traj_len = torch.ones((b,), dtype=torch.int32, device=dev)
+        t = torch.zeros((), dtype=torch.int64, device=dev)
+        ended = torch.zeros((b,), dtype=torch.bool, device=dev)
+
+        def step():
+            carry = init_carry(cfg, b, device=dev)
+            _, logits, cand = agent.full_step(
+                txt, mask, carry, rgb, depth, pos, heading, traj_pos,
+                traj_dist, traj_len, t, ended)
+            return logits.cpu(), cand.ang_bins.cpu()
+
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    summarize(prof, wall, 1, f"fused CE step x1 ({b} envs, r2r_ce width, "
+              f"ResNet50/ddppo f32, clip_b32 + ViT-B/16 bf16)", out, top=20,
+              watch=("grid_pool_fwd", "attention_qkv", "layernorm"))
+    trainer = CETrainer(cfg, agent)
+    with agent.inference():
+        raw = trainer.record_batch(ce_env(6), CE_STEPS,
+                                   np.random.default_rng(0),
+                                   trainer.ss_ratio(0))
+    batch = batch_to_device(raw, "cuda")
+    batch = batch._replace(steps=batch.steps._replace(
+        patch_fts=batch.steps.patch_fts.clone()))
+    trainer.update(batch, seed=0, dropout=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.update(batch, seed=0, dropout=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(prof, wall, 1, f"CE update x1 ({b} envs x {CE_STEPS} steps, "
+              f"r2r_ce_config() f32, remat_steps="
+              f"{cfg.train.remat_steps})", out, top=20,
+              watch=("grid_pool_fwd", "grid_pool_bwd"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
@@ -493,6 +567,8 @@ def main() -> int:
         summarize(prof, wall, 1, f"pretrain update x1, {task} (8 x 21, "
                   f"{pcfg.shapes.max_points}-point buffer, r2r width, f32)",
                   out, top=20)
+    del model, state, batch
+    ce_profile(out)
     (out_dir / "chip_profile.txt").write_text("\n".join(out) + "\n")
     return 0
 

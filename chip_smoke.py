@@ -85,6 +85,20 @@ Phases, in order (any failure raises and the exit code is not 0):
         shipped navigator.pt; a pretrain-layout dict through
         remap_pretrain_to_navigator served the same way (1e-5 x
         max|logit|);
+      - VLN-CE at r2r_ce_config() width: `run_ce --full --view_tower` over
+        the synthetic arena (224 px RGB, 256 px depth; 4 envs x 20 steps,
+        2 schedule-sampled train batches with their updates, one greedy
+        eval batch): finite losses and metrics, K1, K2, K3, K5a and K5b
+        launched; then, on freshly seeded weights, a greedy rollout
+        through the fused device step and one through the host path must
+        act identically (and step 0's device assembly match the host's),
+        the same rollout with f32 towers and the plain ops under the
+        reproducible reference within LOGIT_TOL (or the step where the
+        actions part, with its logit gap), the bf16 towers' first step
+        within BF16_REL_TOL; one recorded batch's loss and gradients
+        against the plain ops on CE_GRAD_SEED weights and three updates
+        with a falling loss; the tiny CE agent (head_dim 16: K4) card vs
+        CPU, one rollout and one update;
   (e) times with CUDA events (kernel, plain version, library yardstick,
       bound; the pool at the serving, pipeline and train shapes; LayerNorm
       at the tower's and the tiny tower's widths in both types; K4 at the
@@ -98,9 +112,18 @@ Phases, in order (any failure raises and the exit code is not 0):
       peak memory; K1, K5a and K5b at the pretraining buffer (B=8,
       N=12,416, D=768 f32) beside their bounds, plain versions and library
       calls; each pretraining task's update time (median of 3, host clock
-      and CUDA events) and peak memory; each beside the card; every
-      phase's seconds;
-  (f) the kernels line; (g) the result line, last.
+      and CUDA events) and peak memory; the VLN-CE path's kernels: K1, K5a
+      and K5b at the CE buffer (B=4, N=11,776, 20 x 588 filled), K2 and K3
+      at the grid tower's and the view tower's shapes for 48 views, SDPA
+      with its backend named; the CE rollout step (fused and host path,
+      the agent's own time per step) and the CE update's time and peak
+      memory; each beside the card; every phase's seconds;
+  (f) the kernels line (every kernel with a `ce` entry: its launches on
+      the run_ce path, K4's on the tiny CE agent's, and its times at the
+      CE shapes); (g) the result line, last.
+
+`python3 chip_smoke.py --ce-only` runs (a), (b) and the VLN-CE phases
+alone and prints no result line.
 
 A longer report goes to chiprun_out/chip_smoke_report.json.
 """
@@ -147,12 +170,20 @@ from gridmm_tpu_torch.env.discrete import DiscreteNavEnv, synthetic_episodes
 from gridmm_tpu_torch.env.world import SyntheticWorld
 from gridmm_tpu_torch.train.agent import NavAgent
 from gridmm_tpu_torch.train.loop import train_navigator
-from gridmm_tpu_torch.train.step import (StepInputs, create_train_state,
+from gridmm_tpu_torch.ce.agent import step_to_device
+from gridmm_tpu_torch.train.step import (NavCarry, StepInputs,
+                                         batch_to_device,
+                                         create_train_state,
                                          init_carry, make_train_step,
                                          nav_device_step, trajectory_loss)
 from gridmm_tpu_torch.train.synthetic import (synthetic_pretrain_batch,
                                               synthetic_trajectory_batch)
+from gridmm_tpu_torch.ce import device_step as ce_device_step
+from gridmm_tpu_torch.ce.env import SyntheticContinuousEnv
+from gridmm_tpu_torch.ce.factory import build_ce_agent
+from gridmm_tpu_torch.ce.trainer import CETrainer
 from gridmm_tpu_torch.cli import export_serving as export_cli_mod
+from gridmm_tpu_torch.cli import run_ce as run_ce_mod
 from gridmm_tpu_torch.cli import parity_eval as parity_eval_mod
 from gridmm_tpu_torch.cli import pretrain as pretrain_cli_mod
 from gridmm_tpu_torch.convert import torch_name
@@ -215,6 +246,17 @@ PRETRAIN_B, PRETRAIN_S, PRETRAIN_N = 8, 21, 12416
 PRETRAIN_TASKS = ("mlm", "mrc", "sap")
 PRETRAIN_UPDATES = 3
 IMPORT_SEED = 11               # the reference-layout state dicts' draws
+# VLN-CE at r2r_ce_config() width: run_ce --num_envs 4 --max_steps 20 (the
+# reference's IL.max_traj_len) fills 20 x 588 of the 11,776-point buffer
+CE_ENVS, CE_STEPS, CE_BATCHES, CE_N = 4, 20, 2, 11776
+CE_SEED = 3                    # the fresh weights of the rollout checks
+# the weights of the CE loss and gradient check, chosen as GRAD_SEED was:
+# with them no ReLU unit of the navigator switches between the kernels'
+# and the plain ops' last bits
+CE_GRAD_SEED = 4
+CE_UPDATES = 3
+CE_PATH_KERNELS = ("grid_pool_fwd", "attention_qkv_fwd", "layernorm_fwd",
+                   "grid_pool_bwd1", "grid_pool_bwd2")
 
 
 def require(cond, msg: str) -> None:
@@ -2039,7 +2081,8 @@ def time_pool_bwd(g, cells, w, label, dev_name):
     return t1, t2
 
 
-def time_train_update(state, step, batch, dev_name):
+def time_train_update(state, step, batch, dev_name,
+                      what="train update, r2r_config() f32"):
     """(e) ms per train update (host clock around synchronised updates, and
     CUDA-event time on the stream) and the update's peak device memory."""
     step(state, batch, seed=0)
@@ -2063,7 +2106,7 @@ def time_train_update(state, step, batch, dev_name):
            "host_ms_median": float(np.median(host_ms)),
            "event_ms_median": float(np.median(event_ms)),
            "peak_device_bytes": peak, "held_before_bytes": held}
-    print(f"  train update, {b} trajectories x {s} steps, r2r_config() f32: "
+    print(f"  {what}, {b} trajectories x {s} steps: "
           f"host clock {[round(x, 1) for x in host_ms]} ms, CUDA events "
           f"{[round(x, 1) for x in event_ms]} ms; peak device memory "
           f"{peak / 2**30:.3f} GiB, of which {held / 2**30:.3f} GiB were "
@@ -2150,6 +2193,91 @@ def time_kernel(label, kernel, call, plain, library, arg_sets, nbytes, ops,
     return t
 
 
+def _cuda_normal(rng, shape, dtype, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+        np.float32)).to("cuda", dtype)
+
+
+def time_layernorm_case(rng, rows, c, dtype, dev_name):
+    """K3 at (rows, c) in `dtype`, beside F.layer_norm (which takes scale
+    and bias in x's type: they are cast once, outside the timed call)."""
+    f32 = torch.float32
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = 2 * rows * c * size + 2 * c * 4
+    sets = []
+    for _ in range(copies_for(nbytes)):
+        w = _cuda_normal(rng, (c,), f32) + 1.0
+        b = _cuda_normal(rng, (c,), f32)
+        sets.append((_cuda_normal(rng, (rows, c), dtype), w, b, w.to(dtype),
+                     b.to(dtype)))
+    return time_kernel(
+        f"({rows}, {c}) {str(dtype)[6:]}", LAYERNORM_FWD,
+        lambda x, w, b, wc, bc: LAYERNORM_FWD(x, w, b),
+        lambda x, w, b, wc, bc: LN.layernorm_plain(x, w, b),
+        lambda x, w, b, wc, bc: F.layer_norm(x, (c,), wc, bc, 1e-5),
+        sets, nbytes, 8 * rows * c, f32, dev_name)
+
+
+def sdpa_packed(qkv, heads=12):
+    """(B, L, 3W) packed projection -> the (B, H, L, hd) q, k, v views
+    SDPA takes."""
+    b, length, _ = qkv.shape
+    return qkv.view(b, length, 3, heads, 64).permute(2, 0, 3, 1, 4)
+
+
+def time_qkv_case(rng, b, length, dev_name):
+    """K2 at (b, length, 2304) bf16 beside SDPA on the (B, H, L, hd) views
+    of the packed projection: each backend that takes them is timed, and
+    the fastest is the yardstick, named."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    bf16 = torch.bfloat16
+    nbytes = b * length * 2304 * 2 + b * length * 768 * 2
+    sets = [(_cuda_normal(rng, (b, length, 2304), bf16),)
+            for _ in range(copies_for(nbytes))]
+    libraries = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def library(x, backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(*sdpa_packed(x))
+        try:
+            library(*sets[0])
+        except RuntimeError:
+            continue
+        libraries[backend.name] = (rotating_ms(library, sets), library)
+    name = min(libraries, key=lambda k: libraries[k][0])
+    out = time_kernel(
+        f"({b}, {length}, 2304) bf16", ATTENTION_QKV_FWD,
+        lambda x: ATTENTION_QKV_FWD(x, 12),
+        lambda x: ATT.attention_qkv_plain(x, 12), libraries[name][1], sets,
+        nbytes, 4 * b * 12 * length * length * 64, bf16, dev_name)
+    out["library"] = f"F.scaled_dot_product_attention, {name}"
+    out["library_backends_ms"] = {k: v[0] for k, v in libraries.items()}
+    print(f"    library: SDPA on (B, H, L, hd) views, the fastest backend "
+          f"{name}; each backend "
+          f"{ {k: round(v[0], 5) for k, v in libraries.items()} } ms")
+    return out
+
+
+def time_attention_case(rng, bh, length, hd, dtype, dev_name):
+    """K4 at (bh, length, hd) in `dtype` beside SDPA on 4-D (1, BH, L, hd)
+    views, its backend pinned (f32: memory-efficient; bf16: flash)."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = 4 * bh * length * hd * size
+    sets = [tuple(_cuda_normal(rng, (bh, length, hd), dtype)
+                  for _ in range(3)) for _ in range(copies_for(nbytes))]
+    sdpa, backend = sdpa_4d(*sets[0])
+    out = time_kernel(
+        f"({bh}, {length}, {hd}) {str(dtype)[6:]}", ATTENTION_FWD,
+        ATTENTION_FWD, ATT.attention_plain, sdpa, sets, nbytes,
+        4 * bh * length * length * hd, dtype, dev_name)
+    out["library"] = f"F.scaled_dot_product_attention, {backend}"
+    print(f"    library: SDPA on (1, BH, L, hd) views, {backend} backend")
+    return out
+
+
 def time_encoder_kernels(dev_name):
     """(e) K3 at the tower's LayerNorm shape, K2 at clip_b32 and at B/16,
     K4 at the tiny tower's shape, at B/16 width and at ViT-H/14's; the
@@ -2157,68 +2285,26 @@ def time_encoder_kernels(dev_name):
     views of the split heads."""
     out = {}
     rng = np.random.default_rng(21)
-
-    def cuda(shape, dtype, scale=1.0):
-        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
-            np.float32)).to("cuda", dtype)
-
     bf16, f32 = torch.bfloat16, torch.float32
     # K3 at the tower's shape (the main path's, bf16), in f32, and at the
-    # tiny tower's width. F.layer_norm takes scale and bias in x's type:
-    # they are cast once, outside the timed call
+    # tiny tower's width
     for rows, c, dtype, key in (
             (CLIP_BATCH * VIEWS * 50, 768, bf16, "layernorm_fwd"),
             (CLIP_BATCH * VIEWS * 50, 768, f32, "layernorm_fwd_f32"),
             (4 * VIEWS * 50, 64, bf16, "layernorm_fwd_c64_bf16"),
             (4 * VIEWS * 50, 64, f32, "layernorm_fwd_c64_f32")):
-        size = 2 if dtype == bf16 else 4
-        nbytes = 2 * rows * c * size + 2 * c * 4
-        sets = []
-        for _ in range(copies_for(nbytes)):
-            w, b = cuda((c,), f32) + 1.0, cuda((c,), f32)
-            sets.append((cuda((rows, c), dtype), w, b, w.to(dtype),
-                         b.to(dtype)))
-        out[key] = time_kernel(
-            f"({rows}, {c}) {str(dtype)[6:]}", LAYERNORM_FWD,
-            lambda x, w, b, wc, bc: LAYERNORM_FWD(x, w, b),
-            lambda x, w, b, wc, bc: LN.layernorm_plain(x, w, b),
-            lambda x, w, b, wc, bc, c=c: F.layer_norm(x, (c,), wc, bc, 1e-5),
-            sets, nbytes, 8 * rows * c, f32, dev_name)
-
-    def sdpa_packed(qkv, heads=12):
-        b, length, _ = qkv.shape
-        q, k, v = qkv.view(b, length, 3, heads, 64).permute(2, 0, 3, 1, 4)
-        return F.scaled_dot_product_attention(q, k, v)
-
+        out[key] = time_layernorm_case(rng, rows, c, dtype, dev_name)
     for b, length, key in ((CLIP_BATCH * VIEWS, 50, "attention_qkv_fwd"),
                            (CLIP_BATCH * VIEWS, 197, "attention_qkv_fwd_p16")):
-        nbytes = b * length * 2304 * 2 + b * length * 768 * 2
-        sets = [(cuda((b, length, 2304), bf16),)
-                for _ in range(copies_for(nbytes))]
-        out[key] = time_kernel(
-            f"({b}, {length}, 2304) bf16", ATTENTION_QKV_FWD,
-            lambda x: ATTENTION_QKV_FWD(x, 12),
-            lambda x: ATT.attention_qkv_plain(x, 12), sdpa_packed, sets,
-            nbytes, 4 * b * 12 * length * length * 64, bf16, dev_name)
+        out[key] = time_qkv_case(rng, b, length, dev_name)
 
     # K4 at the tiny tower's shape, at B/16 width and at ViT-H/14's widths
-    # (192 views x 16 heads); SDPA on 4-D (1, BH, L, hd) views, with its
-    # backend pinned (f32: memory-efficient; bf16: flash)
+    # (192 views x 16 heads)
     for bh, length, hd, dtype, key in (
             (4 * VIEWS * 4, 50, 16, f32, "attention_fwd"),
             (CLIP_BATCH * VIEWS * 12, 197, 64, bf16, "attention_fwd_p16"),
             (CLIP_BATCH * VIEWS * 16, 257, 80, bf16, "attention_fwd_h14")):
-        size = 2 if dtype == bf16 else 4
-        nbytes = 4 * bh * length * hd * size
-        sets = [tuple(cuda((bh, length, hd), dtype) for _ in range(3))
-                for _ in range(copies_for(nbytes))]
-        sdpa, backend = sdpa_4d(*sets[0])
-        out[key] = time_kernel(
-            f"({bh}, {length}, {hd}) {str(dtype)[6:]}", ATTENTION_FWD,
-            ATTENTION_FWD, ATT.attention_plain, sdpa, sets, nbytes,
-            4 * bh * length * length * hd, dtype, dev_name)
-        out[key]["library"] = f"F.scaled_dot_product_attention, {backend}"
-        print(f"    library: SDPA on (1, BH, L, hd) views, {backend} backend")
+        out[key] = time_attention_case(rng, bh, length, hd, dtype, dev_name)
     return out
 
 
@@ -2287,7 +2373,511 @@ def time_encode_and_pipeline(ex, model, cfg, dev_name):
     return res
 
 
-def main() -> int:
+# ------------------------------------------------------ (d) the VLN-CE path
+class StepClock:
+    """SectionTimer's interface, keeping every duration: a rollout's
+    sections come once per step, so index t is step t."""
+
+    def __init__(self):
+        self.times = {}
+
+    @contextlib.contextmanager
+    def section(self, name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.times.setdefault(name, []).append(time.perf_counter() - t0)
+
+    def agent_step_ms(self):
+        """The agent's own ms per step: every section but the env's."""
+        names = [k for k in self.times if k != "env_step"]
+        steps = min(len(self.times[k]) for k in names)
+        return [1e3 * sum(self.times[k][t] for k in names)
+                for t in range(steps)]
+
+
+def ce_env(seed, num_envs=CE_ENVS):
+    return SyntheticContinuousEnv(num_envs=num_envs, image_size=224,
+                                  depth_size=256, seed=seed)
+
+
+def ce_rollout(agent, fused, seed, trace=None, clock=None, steps=CE_STEPS):
+    """One greedy rollout on a fresh arena; returns (metrics, paths)."""
+    agent.fused_rollout = fused
+    env = ce_env(seed)
+    m = agent.rollout(env, max_steps=steps, feedback="argmax", trace=trace,
+                      timer=clock)
+    return m, [np.asarray(p) for p in env.paths]
+
+
+def same_paths(a, b):
+    return len(a) == len(b) and all(
+        x.shape == y.shape and np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def ce_cli_path(report):
+    """run_ce --full --view_tower on the synthetic arena at r2r_ce width:
+    two schedule-sampled batches of 4 envs x 20 steps with their updates,
+    then one greedy eval batch; K1, K2, K3, K5a and K5b must launch."""
+    out_dir = ROOT / "runs" / "chip_smoke" / "ce"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--full", "--view_tower", "--num_envs", str(CE_ENVS),
+            "--epochs", "1", "--batches_per_epoch", str(CE_BATCHES),
+            "--eval_batches", "1", "--max_steps", str(CE_STEPS),
+            "--device", "cuda", "--seed", "0", "--output_dir",
+            str(out_dir)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = run_ce_mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    losses = [rec["ce_train/loss"] for rec in map(
+        json.loads, (out_dir / "metrics.jsonl").read_text().splitlines())
+        if "ce_train/loss" in rec]
+    print(f"  run_ce --full --view_tower, {CE_ENVS} envs x {CE_STEPS} "
+          f"steps, {CE_BATCHES} train batches and one eval batch: "
+          f"{wall:.1f}s; losses {losses}; eval {metrics}; launches "
+          f"{launches}")
+    require(len(losses) == CE_BATCHES and np.isfinite(losses).all(),
+            f"CE train losses {losses}")
+    require(np.isfinite(list(metrics.values())).all()
+            and 0.0 <= metrics["sr"] <= 1.0, f"CE eval metrics {metrics}")
+    for name in CE_PATH_KERNELS:
+        require(launches[name] > 0, f"{name} did not launch on the CE path")
+    require(launches["attention_fwd"] == 0,
+            "the per-head kernel launched on the hd-64 towers")
+    require((out_dir / "checkpoints" / "ckpt.0").exists(),
+            "run_ce wrote no checkpoint")
+    report["ce"] = {"cli": {"argv": argv, "wall_s": wall, "losses": losses,
+                            "eval": metrics, "launches": launches}}
+
+
+def f32_tower(tower):
+    """The same tower computing in f32 (its weights are f32 already)."""
+    m = clip_mod.ClipVisionTransformer(dataclasses.replace(
+        tower.cfg, compute_dtype="float32")).to("cuda").eval()
+    m.load_state_dict(tower.state_dict())
+    return m
+
+
+def compare_ce_traces(got, want, what):
+    """Step by step while both runs took the same actions: -inf at the same
+    places and the rest within LOGIT_TOL. Returns (max|diff|, the first
+    step whose actions part or None, the kernel run's gap between its two
+    best logits there)."""
+    worst = 0.0
+    for t, (a, b) in enumerate(zip(got, want)):
+        fin = np.isfinite(b)
+        require(np.array_equal(np.isfinite(a), fin),
+                f"{what}, step {t}: finite sets differ")
+        torch.testing.assert_close(torch.from_numpy(a[fin]),
+                                   torch.from_numpy(b[fin]), rtol=LOGIT_TOL,
+                                   atol=LOGIT_TOL)
+        worst = max(worst, float(np.abs(a[fin] - b[fin]).max()))
+        if not np.array_equal(a.argmax(-1), b.argmax(-1)):
+            top = np.sort(np.where(np.isfinite(a), a, -np.inf), axis=-1)
+            return worst, t, float((top[:, -1] - top[:, -2]).min())
+    return worst, None, None
+
+
+def trace_gap(got, want):
+    """(max|diff|, max|logit|) over the finite logits of two traces."""
+    worst = scale = 0.0
+    for a, b in zip(got, want):
+        fin = np.isfinite(a) & np.isfinite(b)
+        worst = max(worst, float(np.abs(a[fin] - b[fin]).max()))
+        scale = max(scale, float(np.abs(b[fin]).max()))
+    return worst, scale
+
+
+def ce_assembly_walk(agent, seed, steps=CE_STEPS):
+    """A greedy rollout on the card that assembles every step twice, on the
+    device (device_build_step) and on the host (_build_step), from the same
+    perception: integer and boolean fields must be equal and floats within
+    1e-4, as the CPU tests hold them. Each assembly then runs the
+    navigation step from a copy of the same carry, and the walk follows
+    the device assembly's actions. Returns (each float field's max|diff|,
+    each step's logit max|diff| and max|logit|, the count of position
+    features left out where a node is coincident in f32 and ~1e-9 m away
+    in f64)."""
+    cfg = agent.cfg
+    env = ce_env(seed)
+    b, cap = env.num_envs, cfg.model.max_action_steps
+    centers = np.asarray([19 + 36 * i for i in range(7)])
+    diffs, gaps, revisits = {}, [], 0
+    with agent.inference():
+        obs = env.reset()
+        ids, mask = agent.language_batch(obs)
+        mask = torch.from_numpy(mask).cuda()
+        txt = agent.language(torch.from_numpy(ids).cuda(), mask)
+        carry = init_carry(cfg, b, device="cuda")
+        tpos = np.zeros((b, cap, 3), np.float32)
+        tdist = np.zeros((b, cap), np.float32)
+        ended = np.zeros(b, bool)
+        for t in range(steps):
+            for i, ob in enumerate(obs):
+                p3 = np.array([ob.position[0], ob.height, ob.position[1]],
+                              np.float32)
+                tdist[i, t] = 0.0 if t == 0 else float(
+                    np.linalg.norm(p3 - tpos[i, t - 1]))
+                tpos[i, t] = p3
+            rgb, depth = agent.observation_tensors(obs)
+            nms, _, patch, view_cls, view_feats = agent.perception(rgb, depth)
+            nms_h = nms.cpu().numpy()
+            cands = [agent.candidates_from_nms(nms_h[i], obs[i].heading,
+                                               agent.max_candidates)
+                     for i in range(b)]
+            x_host, _ = agent._build_step(
+                obs, cands, view_cls.cpu().numpy(), centers,
+                np.ones(b, np.int32), t,
+                view_feats=view_feats.float().cpu().numpy(), ended=ended)
+            host = (np.stack([ob.position for ob in obs]).astype(np.float32),
+                    np.asarray([ob.heading for ob in obs], np.float32), tpos,
+                    tdist, np.full(b, t + 1, np.int32), ended)
+            pos, hd, tp, td, tl, en = (torch.from_numpy(np.array(a)).cuda()
+                                       for a in host)
+            cand = ce_device_step.device_candidates(nms, agent.max_candidates)
+            x_dev = ce_device_step.device_build_step(
+                cfg, cand, view_cls, depth, pos, hd, tp, td, tl,
+                torch.full((), t, dtype=torch.int64, device="cuda"),
+                view_feats=view_feats, ended=en)
+            for f in StepInputs._fields:
+                if f == "patch_fts":
+                    continue
+                a = getattr(x_dev, f).cpu().numpy()
+                h = np.asarray(getattr(x_host, f))
+                require(a.shape == h.shape, f"step {t} assembly: {f} shape")
+                if np.issubdtype(h.dtype, np.floating):
+                    if f in ("gmap_pos_fts", "vp_pos_fts"):
+                        # a node within ~1e-9 m of the current one: the
+                        # host's f64 positions give that offset an angle,
+                        # the device's f32 ones find the node coincident
+                        # (the JAX twins part the same way); the arena
+                        # keeps positions in f64, so a loop back to an
+                        # earlier node lands there
+                        af = cfg.model.angle_feat_size
+                        near = (np.abs(h[..., af]) < 1e-6) & (
+                            h[..., :af] != a[..., :af]).any(-1)
+                        revisits += int(near.sum())
+                        a = a.copy()
+                        a[..., :af + 3][near] = h[..., :af + 3][near]
+                    diffs[f] = max(diffs.get(f, 0.0),
+                                   float(np.abs(a - h).max()))
+                    if diffs[f] > 1e-4:
+                        at = np.unravel_index(np.abs(a - h).argmax(),
+                                              a.shape)
+                        i = at[0]
+                        raise AssertionError(
+                            f"step {t} assembly: {f} differs by "
+                            f"{diffs[f]} at {at}: device {a[at[:-1]]}, "
+                            f"host {h[at[:-1]]}; env {i} ended "
+                            f"{ended[i]}, device trajectory "
+                            f"{tpos[i, :t + 1].tolist()}, host "
+                            f"{[p.tolist() for p in agent._traj_pos[i]]}, "
+                            f"heading {obs[i].heading!r}")
+                else:
+                    require(np.array_equal(a, h),
+                            f"step {t} assembly: {f} differs")
+            logits = []
+            for x in (x_dev, step_to_device(x_host, "cuda")):
+                c = NavCarry(G.PointCloudState(*(u.clone() for u in
+                                                 carry.point_state)),
+                             carry.gmap_sum.clone(), carry.gmap_cnt.clone())
+                c, out = nav_device_step(agent.navigator, cfg, txt, mask, c,
+                                         x._replace(patch_fts=patch))
+                logits.append((c, ce_device_step.ce_action_logits(
+                    out.global_logits, out.local_logits,
+                    x.cand_gmap_idx).double().cpu().numpy()))
+            (carry, ld), (_, lh) = logits
+            fin = np.isfinite(ld) & np.isfinite(lh)
+            gaps.append((float(np.abs(ld[fin] - lh[fin]).max()),
+                         float(np.abs(lh[fin]).max())))
+            a_t = ld.argmax(-1)
+            ang = cand.ang_bins.cpu().numpy()
+            dbin = cand.dist_bins.cpu().numpy()
+            n_c = cand.mask.sum(-1).cpu().numpy()
+            for i in range(b):
+                if ended[i]:
+                    continue
+                if a_t[i] == 0 or t == steps - 1 or a_t[i] > n_c[i]:
+                    ended[i] = True
+                    continue
+                j = int(a_t[i]) - 1
+                env.step_to(i, obs[i].heading + ang[i, j] * (
+                    2 * math.pi / 120), (dbin[i, j] + 1) * 0.25)
+            obs = env.observations()
+            if ended.all():
+                break
+    return diffs, gaps, revisits
+
+
+def ce_rollout_checks(report, dev_name):
+    """Fresh full-width weights: a greedy rollout through the fused device
+    step and one through the host path must act identically; the rollout
+    with the plain ops (f32 towers, so that LOGIT_TOL applies) against the
+    kernels; step times of both paths."""
+    t0 = time.time()
+    cfg, agent = build_ce_agent(tiny=False, view_tower=True, seed=CE_SEED,
+                                device="cuda")
+    print(f"  full CE agent (navigator, ResNet50 + ddppo towers, clip_b32, "
+          f"ViT-B/16 view tower), seed {CE_SEED}: {time.time() - t0:.1f}s")
+    fused_trace, host_trace = [], []
+    reset_counts()
+    _, p_fused = ce_rollout(agent, True, 5, trace=fused_trace)
+    _, p_host = ce_rollout(agent, False, 5, trace=host_trace)
+    launches = counts()
+    require(same_paths(p_fused, p_host),
+            "the fused and host-path rollouts acted differently")
+    gap, scale = trace_gap(fused_trace, host_trace)
+    again = []
+    _, p_again = ce_rollout(agent, True, 5, trace=again)
+    require(same_paths(p_fused, p_again), "two fused rollouts differ")
+    rerun_gap, _ = trace_gap(again, fused_trace)
+    step_diffs, step_gaps, revisits = ce_assembly_walk(agent, 5)
+    print(f"  greedy rollouts, {CE_ENVS} envs x {len(fused_trace)} steps, "
+          f"fused device step vs host path: identical actions (path "
+          f"lengths {[len(p) for p in p_fused]}), logits max|diff| "
+          f"{gap:.3e} of max|logit| {scale:.3e} (a second fused run: "
+          f"{rerun_gap:.3e}); launches {launches}")
+    print(f"  the same walk with both assemblies each step: device vs host "
+          f"float fields max|diff| {max(step_diffs.values()):.3e} "
+          f"({max(step_diffs, key=step_diffs.get)}), {revisits} position "
+          f"rows left out (a node coincident in f32, ~1e-9 m away in "
+          f"f64); logits from each, same carry, max|diff| per step "
+          f"{[float(f'{g:.2e}') for g, _ in step_gaps]}")
+
+    # the agent's own step time, warm, both paths
+    step_ms = {}
+    for fused, key in ((True, "fused"), (False, "host_path")):
+        clock = StepClock()
+        torch.cuda.synchronize()
+        ce_rollout(agent, fused, 5, clock=clock)
+        ms = clock.agent_step_ms()
+        step_ms[key] = {"median_ms": float(np.median(ms)), "steps": len(ms),
+                        "ms": ms}
+        print(f"  CE rollout step, {CE_ENVS} envs, {key}: median "
+              f"{np.median(ms):.2f} ms over {len(ms)} steps (the agent's "
+              f"own time on the host clock, env rendering excluded) "
+              f"[{dev_name}]")
+
+    # kernels against the plain ops: f32 towers, reproducible reference
+    agent32 = type(agent)(cfg, agent.navigator, agent.waypoint,
+                          f32_tower(agent.clip), agent.rgb_tower,
+                          agent.depth_tower, f32_tower(agent.view_encoder))
+    k_trace, p_trace = [], []
+    _, pk = ce_rollout(agent32, True, 5, trace=k_trace)
+    with plain_ops(), reproducible_reference():
+        _, pp = ce_rollout(agent32, True, 5, trace=p_trace)
+    worst, part, part_gap = compare_ce_traces(k_trace, p_trace,
+                                              "CE rollout, kernels vs plain")
+    require(part is not None or same_paths(pk, pp),
+            "the kernel and plain runs moved differently with equal actions")
+    print(f"  the same rollout with f32 towers, kernels vs plain ops: "
+          f"logits max|diff| {worst:.3e} (tolerance {LOGIT_TOL}); "
+          + ("identical actions" if part is None else
+             f"actions part at step {part}, where the kernel run's two best "
+             f"logits are {part_gap:.3e} apart"))
+    # bf16 towers: the first step's logits (same observations) within the
+    # bf16 bound of phase d
+    b_trace = []
+    with plain_ops(), reproducible_reference():
+        ce_rollout(agent, True, 5, trace=b_trace, steps=1)
+    a, b = fused_trace[0], b_trace[0]
+    fin = np.isfinite(b)
+    bf16_err = rel_err(torch.from_numpy(a[fin]), torch.from_numpy(b[fin]))
+    require(bf16_err <= BF16_REL_TOL,
+            f"bf16 towers: first-step logits {bf16_err:.3e} apart")
+    print(f"  bf16 towers, first step, kernels vs plain ops: relative "
+          f"error {bf16_err:.3e} (bound {BF16_REL_TOL})")
+    report["ce"]["rollouts"] = {
+        "seed": CE_SEED, "launches_two_rollouts": launches,
+        "fused_vs_host_logit_max_abs_diff": gap, "max_abs_logit": scale,
+        "fused_rerun_logit_max_abs_diff": rerun_gap,
+        "assembly_max_abs_diff": step_diffs,
+        "assembly_logit_gaps": step_gaps,
+        "assembly_revisit_rows": revisits,
+        "f32_kernels_vs_plain_logit_max_abs_diff": worst,
+        "f32_actions_part_at_step": part, "part_gap": part_gap,
+        "bf16_first_step_rel_err": bf16_err, "step_ms": step_ms}
+    del agent, agent32
+
+
+def ce_update_checks(report, dev_name):
+    """Fresh full-width weights (CE_GRAD_SEED): one schedule-sampled batch
+    of 4 envs x 20 steps recorded, its loss and gradients against the plain
+    ops, three updates (dropout off) with a falling loss; returns
+    (trainer, batch) for phase e."""
+    cfg, agent = build_ce_agent(tiny=False, view_tower=True,
+                                seed=CE_GRAD_SEED, device="cuda")
+    trainer = CETrainer(cfg, agent)
+    with agent.inference():
+        raw = trainer.record_batch(ce_env(6), CE_STEPS,
+                                   np.random.default_rng(0),
+                                   trainer.ss_ratio(0))
+    batch = batch_to_device(raw, "cuda")
+    batch = batch._replace(steps=batch.steps._replace(
+        patch_fts=batch.steps.patch_fts.clone()))
+    nav = agent.navigator
+    nav.eval()
+    tcfg = trainer.cfg
+    loss_k, grads_k = loss_and_grads(nav, tcfg, batch)
+    with plain_ops(), reproducible_reference():
+        loss_p, grads_p = loss_and_grads(nav, tcfg, batch)
+    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
+            f"CE loss, kernels {loss_k} vs plain ops {loss_p}")
+    worst = compare_grads(grads_k, grads_p, 1e-3, "CE, kernels vs plain ops")
+    print(f"  CE loss and gradients ({CE_ENVS} x {CE_STEPS}, seed "
+          f"{CE_GRAD_SEED}), kernels vs plain ops: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (1e-5 relative); {len(grads_p)} leaves, worst "
+          f"max|diff| / max|leaf| {worst:.3e} (bound 1e-3)")
+    del grads_k, grads_p
+    remat = tcfg.train.remat_steps
+    torch.cuda.synchronize()
+    reset_counts()
+    losses = [trainer.update(batch, seed=0, dropout=False)["loss"].item()
+              for _ in range(CE_UPDATES)]
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"  {CE_UPDATES} CE updates on one batch (dropout off): losses "
+          f"{[round(x, 5) for x in losses]}; launches {launches}")
+    require(np.isfinite(losses).all()
+            and all(a > b for a, b in zip(losses, losses[1:])),
+            "the CE loss did not fall over the updates on one batch")
+    k1 = CE_STEPS * (2 if remat else 1)
+    require(launches["grid_pool_fwd"] == CE_UPDATES * k1
+            and launches["grid_pool_bwd1"] == CE_UPDATES * CE_STEPS
+            and launches["grid_pool_bwd2"] == CE_UPDATES * CE_STEPS,
+            f"CE update launches {launches}")
+    report["ce"]["updates"] = {
+        "seed": CE_GRAD_SEED, "loss_kernels": loss_k, "loss_plain": loss_p,
+        "worst_grad_diff_vs_plain": worst, "losses": losses,
+        "launches": launches}
+    return trainer, batch
+
+
+def tiny_ce_cpu_reference(report):
+    """The tiny CE agent (CLIP width 64, 4 heads: head_dim 16, so K4) on the
+    card against the same agent on the CPU: one greedy rollout through the
+    fused step (equal paths, logits within 1e-4) and one update (loss
+    within 1e-4 relative, gradients within 1e-3 of each leaf's max)."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg, agent = build_ce_agent(tiny=True, seed=2, device=dev)
+        agent.fused_rollout = True
+        trace = []
+        env = SyntheticContinuousEnv(num_envs=2, image_size=56,
+                                     depth_size=256, seed=3)
+        reset_counts()
+        agent.rollout(env, max_steps=4, trace=trace)
+        out[dev] = {"agent": agent, "trace": trace,
+                    "paths": [np.asarray(p) for p in env.paths],
+                    "k4": counts()["attention_fwd"]}
+    require(same_paths(out["cuda"]["paths"], out["cpu"]["paths"]),
+            "tiny CE rollout: card and CPU acted differently")
+    worst = 0.0
+    for a, b in zip(out["cuda"]["trace"], out["cpu"]["trace"]):
+        fin = np.isfinite(b)
+        require(np.array_equal(np.isfinite(a), fin), "tiny CE: finite sets")
+        worst = max(worst, float(np.abs(a[fin] - b[fin]).max()))
+    require(worst <= 1e-4, f"tiny CE logits, card vs CPU: {worst:.3e}")
+    require(out["cuda"]["k4"] > 0, "the tiny CE rollout did not launch K4")
+    trainer = CETrainer(cfg, out["cpu"]["agent"])
+    with out["cpu"]["agent"].inference():
+        raw = trainer.record_batch(
+            SyntheticContinuousEnv(num_envs=2, image_size=56, depth_size=256,
+                                   seed=4), 4, np.random.default_rng(0),
+            trainer.ss_ratio(0))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        nav = out[dev]["agent"].navigator.eval()
+        res[dev] = loss_and_grads(nav, trainer.cfg, batch_to_device(raw, dev))
+    require(abs(res["cuda"][0] - res["cpu"][0]) <= 1e-4 * abs(res["cpu"][0]),
+            f"tiny CE loss: {res['cuda'][0]} vs {res['cpu'][0]}")
+    gworst = compare_grads(res["cuda"][1], res["cpu"][1], 1e-3,
+                           "tiny CE update, card vs CPU")
+    print(f"  tiny CE agent, card vs CPU: rollout paths equal, logits "
+          f"max|diff| {worst:.3e} (1e-4), K4 launches "
+          f"{out['cuda']['k4']}; loss {res['cuda'][0]:.6f} vs "
+          f"{res['cpu'][0]:.6f}, worst gradient max|diff| / max|leaf| "
+          f"{gworst:.3e} (1e-3)")
+    report["ce"]["tiny"] = {"logit_max_abs_diff": worst,
+                            "k4_launches": out["cuda"]["k4"],
+                            "worst_grad_diff": gworst}
+    return out["cuda"]["k4"]
+
+
+def time_ce(trainer, batch, dev_name):
+    """(e) the kernels at the CE shapes (K1, K5a, K5b at the CE buffer; K2
+    and K3 at the two towers' shapes for 4 envs x 12 views; K4 at the tiny
+    CE agent's) and the CE update's time and peak memory."""
+    out = {}
+    g, c, w = pool_case("random", CE_ENVS, torch.float32, seed=8, n=CE_N)
+    c[:, CE_STEPS * 588:] = -1
+    label = (f"B={CE_ENVS} N={CE_N} D=768 f32 ({CE_STEPS * 588} filled, 5% "
+             f"of them invalid)")
+    out["grid_pool_fwd"] = time_pool(g, c, w, "CE " + label, dev_name)
+    out["grid_pool_bwd1"], out["grid_pool_bwd2"] = time_pool_bwd(
+        g, c, w, label, dev_name)
+    del g, c, w
+    rng = np.random.default_rng(22)
+    views = CE_ENVS * VIEWS
+    out["attention_qkv_fwd"] = time_qkv_case(rng, views, 197, dev_name)
+    out["attention_qkv_fwd_grid"] = time_qkv_case(rng, views, 50, dev_name)
+    out["layernorm_fwd"] = time_layernorm_case(rng, views * 197, 768,
+                                               torch.bfloat16, dev_name)
+    out["layernorm_fwd_grid"] = time_layernorm_case(rng, views * 50, 768,
+                                                    torch.bfloat16, dev_name)
+    # K4 at the tiny CE agent's CLIP (2 envs x 12 views x 4 heads, hd 16)
+    out["attention_fwd"] = time_attention_case(rng, 2 * VIEWS * 4, 50, 16,
+                                               torch.float32, dev_name)
+    out["update"] = time_train_update(
+        trainer.state, lambda state, batch, seed: trainer.update(
+            batch, seed, dropout=False), batch, dev_name,
+        what="CE update, r2r_ce_config() f32, dropout off")
+    return out
+
+
+def ce_phases(report, dev_name, phase_s):
+    """(d) the VLN-CE path; returns what phase e times it with."""
+    t_phase = time.time()
+    print("(d) main path: VLN-CE at r2r_ce_config() width (run_ce --full "
+          "--view_tower), fused vs host path, kernels vs plain ops, "
+          "updates, the tiny agent card vs CPU")
+    ce_cli_path(report)
+    ce_rollout_checks(report, dev_name)
+    trainer, batch = ce_update_checks(report, dev_name)
+    k4 = tiny_ce_cpu_reference(report)
+    phase_s["d_ce"] = time.time() - t_phase
+    print(f"    phase (d), VLN-CE: {phase_s['d_ce']:.1f}s")
+    return trainer, batch, k4
+
+
+def ce_kernel_entries(report, timing, k4):
+    """The kernels line's `ce` entries: launches on the run_ce path (K4:
+    the tiny CE agent's) and the times at the CE shapes."""
+    fields = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+    launches = report["ce"]["cli"]["launches"]
+    for name in CE_PATH_KERNELS:
+        report[name]["ce"] = {"launches": launches[name],
+                              **{f: timing[name][f] for f in fields}}
+    for name in ("attention_qkv_fwd", "layernorm_fwd"):
+        report[name]["ce"]["grid_tower"] = {
+            f: timing[f"{name}_grid"][f] for f in fields}
+    report["attention_fwd"]["ce"] = {
+        "launches": k4, "path": "the tiny CE agent's rollout (hd 16)",
+        **{f: timing["attention_fwd"][f] for f in fields}}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    # --ce-only: (a), (b) and the VLN-CE phases alone, for iterating on
+    # that path; it prints no result line
+    ce_only = argv == ["--ce-only"]
+    require(not argv or ce_only, f"unknown arguments {argv}")
     # (a) device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2315,9 +2905,23 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
     report["build_s"] = build_s
+    phase_s = {"b": build_s}
+    if ce_only:
+        trainer, batch, k4 = ce_phases(report, dev_name, phase_s)
+        print("(e) times, VLN-CE")
+        timing = time_ce(trainer, batch, dev_name)
+        ce_kernel_entries(report, timing, k4)
+        report["ce"]["timing"] = timing
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_ce_report.json").write_text(
+            json.dumps(report, indent=1))
+        print(f"card: {dev_name}")
+        print(json.dumps({"ce": {k.name: report[k.name]["ce"]
+                                 for k in KERNELS}}))
+        return 0
 
     # (c) kernels vs plain versions
-    phase_s = {"b": build_s}
     t_phase = time.time()
     print("(c) kernels against their plain versions")
     check_pool_kernel(report)
@@ -2366,6 +2970,7 @@ def main() -> int:
           f"{phase_s['d_real_data_and_bundle']:.1f}s for real data and the "
           f"bundle, {phase_s['d_pretrain_and_import']:.1f}s for "
           f"pretraining and the import")
+    ce_trainer, ce_batch, ce_k4 = ce_phases(report, dev_name, phase_s)
 
     # (e) times
     t_phase = time.time()
@@ -2425,6 +3030,8 @@ def main() -> int:
     timing["pretrain_update"] = time_pretrain_updates(pre_state, pre_cfg,
                                                       pre_batch, dev_name)
     del pre_state, pre_batch
+    timing["ce"] = time_ce(ce_trainer, ce_batch, dev_name)
+    del ce_trainer, ce_batch
     report["timing"] = timing
     for name, key in (("grid_pool_fwd", "main_path_B4_f32"),
                       ("layernorm_fwd", "layernorm_fwd"),
@@ -2444,6 +3051,7 @@ def main() -> int:
             **{f: timing[key][f] for f in ("shape", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
                                            "library_ms")}}
+    ce_kernel_entries(report, timing["ce"], ce_k4)
     report["throughput"] = time_encode_and_pipeline(ex, clip_model,
                                                     pipe_cfg, dev_name)
 
@@ -2469,7 +3077,7 @@ def main() -> int:
         {key: report[k.name][key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "pretrain") if key in report[k.name]}
+            "pretrain", "ce") if key in report[k.name]}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,10 @@ flax names, so the mapping is mechanical:
     except the CLIP block's `ln_1` and `ln_2`, which are plain names;
   * the f32 LayerNorm wrapper's inner `ln` level disappears;
   * Dense `kernel` (in, out) -> Linear `weight` (out, in), transposed;
-  * LayerNorm `scale` -> `weight`; Embed `embedding` -> `weight`.
+  * Conv `kernel` (kh, kw, in, out), HWIO -> Conv2d `weight` (out, in, kh,
+    kw), OIHW;
+  * LayerNorm, GroupNorm and the ResNets' frozen BatchNorm `scale` ->
+    `weight`; Embed `embedding` -> `weight`.
 
 Every flax leaf must land on a parameter of the same shape and every
 parameter must be covered; anything else raises.
@@ -49,13 +52,26 @@ def torch_name(path) -> str:
     return ".".join(parts)
 
 
+def kernel_to_torch(arr: np.ndarray) -> np.ndarray:
+    """A flax kernel in the layout of the torch weight: Dense (in, out) ->
+    (out, in); Conv HWIO -> OIHW."""
+    return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+
+
+def kernel_to_flax(arr: np.ndarray) -> np.ndarray:
+    """The inverse of `kernel_to_torch`."""
+    return arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+
+
 def flax_paths(model: torch.nn.Module) -> Dict[str, str]:
     """The inverse of `torch_name` on one module: {state_dict key: flax
     path} for every parameter, the path "/"-joined (a ModuleList entry
     `name.<k>` is `name_<k>`; a Linear weight is the (in, out) `kernel`, a
     LayerNorm of the port's its `ln/scale` and `ln/bias`, an Embedding
-    weight its `embedding`)."""
+    weight its `embedding`, a Conv2d weight its `kernel`, a GroupNorm's or
+    frozen BatchNorm's weight its `scale`)."""
     from gridmm_tpu_torch.models.layers import LayerNorm
+    from gridmm_tpu_torch.models.resnet import FrozenBatchNorm
 
     out: Dict[str, str] = {}
     for mod_name, mod in model.named_modules():
@@ -71,8 +87,12 @@ def flax_paths(model: torch.nn.Module) -> Dict[str, str]:
                 path = parts + ["ln", {"weight": "scale"}.get(leaf, leaf)]
             elif isinstance(mod, torch.nn.Embedding):
                 path = parts + ["embedding"]
-            elif isinstance(mod, torch.nn.Linear) and leaf == "weight":
+            elif isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d)) \
+                    and leaf == "weight":
                 path = parts + ["kernel"]
+            elif isinstance(mod, (torch.nn.GroupNorm, FrozenBatchNorm)) \
+                    and leaf == "weight":
+                path = parts + ["scale"]
             else:
                 path = parts + [leaf]
             out[key] = "/".join(path)
@@ -95,7 +115,7 @@ def flax_to_state_dict(params: Mapping, model: torch.nn.Module
             continue
         arr = np.asarray(value, dtype=np.float32)
         if path[-1] == "kernel":
-            arr = arr.T
+            arr = kernel_to_torch(arr)
         if tuple(arr.shape) != tuple(want[name].shape):
             raise ValueError(f"{'/'.join(path)} -> {name}: shape "
                              f"{arr.shape} != {tuple(want[name].shape)}")
@@ -134,7 +154,7 @@ def to_flax_tree(tensors: Mapping[str, torch.Tensor], template: Mapping
         else:
             arr = t.detach().cpu().numpy()
             if path[-1] == "kernel":
-                arr = arr.T
+                arr = kernel_to_flax(arr)
         if tuple(arr.shape) != tuple(np.shape(like)):
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != "
                              f"{tuple(np.shape(like))}")

@@ -150,6 +150,19 @@ class ClipFeatureExtractor:
         panoramas processed. An exception in the renderer is raised here."""
         q: "queue.Queue" = queue.Queue(maxsize=prefetch)
         done_marker = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            # bounded waits: when the encode loop leaves early (the sink
+            # raised), this thread sees `stop` within a tick instead of
+            # blocking on the full queue, holding its rendered panoramas
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
 
         def producer():
             try:
@@ -157,35 +170,45 @@ class ClipFeatureExtractor:
                 for rec in records:
                     batch.append(rec)
                     if len(batch) == self.batch_panos:
-                        q.put(batch)
+                        if not put(batch):
+                            return
                         batch = []
-                if batch:
-                    q.put(batch)
-                q.put(done_marker)
+                if batch and not put(batch):
+                    return
+                put(done_marker)
             except BaseException as exc:  # handed to the encode loop
-                q.put(_ProducerError(exc))
+                put(_ProducerError(exc))
 
-        threading.Thread(target=producer, daemon=True).start()
+        threading.Thread(target=producer, daemon=True,
+                         name="clip_extractor").start()
 
         count = 0
         pending = None  # (metas, (host tokens, event), depths)
-        while True:
-            item = q.get()
-            if item is done_marker:
-                break
-            if isinstance(item, _ProducerError):
-                raise item.exc
-            metas = [(s, v) for s, v, _, _ in item]
-            rgb = np.concatenate([r for _, _, r, _ in item])  # (B*12,H,W,3)
-            depths = [d for _, _, _, d in item]
-            launched = self._launch(rgb)
+        try:
+            while True:
+                item = q.get()
+                if item is done_marker:
+                    break
+                if isinstance(item, _ProducerError):
+                    raise item.exc
+                metas = [(s, v) for s, v, _, _ in item]
+                rgb = np.concatenate([r for _, _, r, _ in item])
+                depths = [d for _, _, _, d in item]
+                launched = self._launch(rgb)
+                if pending is not None:
+                    self._drain(pending, sink)
+                    count += len(pending[0])
+                pending = (metas, launched, depths)
             if pending is not None:
                 self._drain(pending, sink)
                 count += len(pending[0])
-            pending = (metas, launched, depths)
-        if pending is not None:
-            self._drain(pending, sink)
-            count += len(pending[0])
+        finally:
+            stop.set()
+            while True:  # release the queued panoramas now
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
         return count
 
     @staticmethod

@@ -251,13 +251,15 @@ def nav_device_step(model: GridMMNavigator, cfg: GridMMConfig, txt_embeds,
 
 
 def _loss_head_logits(cfg, out: NavOutputs, x: StepInputs):
-    """Select the training head. 'ce' is the continuous-env action head
-    (gridmm_tpu/ce/device_step.py ce_action_logits), which the port does not
-    have yet."""
+    """Select the training head. 'ce' is the continuous-env action head:
+    fused = global+local over [stop]+candidates (gridmap/vilmodel.py:
+    788-800), the logits the CE trainer acts on (ss_trainer_GridMap.py:
+    269-330); imported here, as the JAX package does, because ce/ imports
+    this module."""
     if cfg.train.loss_head == "ce":
-        raise NotImplementedError(
-            "loss_head='ce' needs ce/device_step.py, which is not ported "
-            "(ROADMAP Queue 1, VLN-CE)")
+        from gridmm_tpu_torch.ce.device_step import ce_action_logits
+        return ce_action_logits(out.global_logits, out.local_logits,
+                                x.cand_gmap_idx)
     return getattr(out, f"{cfg.train.loss_head}_logits")
 
 

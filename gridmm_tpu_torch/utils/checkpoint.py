@@ -16,8 +16,8 @@ that lands on a kernel is transposed back (convert.torch_name names the
 parameter); the report names leaves by their flax paths, as the JAX
 package's does. Each import returns a state dict the module takes with
 `load_state_dict(strict=True)`, and that report. OpenAI CLIP's visual
-tower is imported too; timm's ViT and the waypoint predictor wait for the
-VLN-CE stack.
+tower, timm's ViT-B/16 (the CE view tower) and the CE waypoint predictor
+are imported too.
 """
 
 from __future__ import annotations
@@ -768,3 +768,111 @@ def import_torch_clip_visual(state_dict: Dict[str, Any],
     with torch.no_grad():
         model.load_state_dict(out, strict=True)
     return model
+
+
+def waypoint_rules(num_layers: int = 2,
+                   use_rgb: bool = True) -> List[Tuple[str, str, str]]:
+    """Key map for the frozen waypoint-predictor checkpoints
+    (VLN_CE/waypoint_prediction/TRM_net.py BinaryDistPredictor_TRM /
+    DepthDistPredictor_TRM, loaded at base_il_trainer.py:96-117; the state
+    dict lives under ckpt['predictor']['state_dict'])."""
+    r: List[Tuple[str, str, str]] = [
+        # nn.Sequential(Flatten, Linear, ReLU) -> Linear at index 1
+        ("visual_fc_depth.1.weight", "visual_fc_depth/kernel", "T"),
+        ("visual_fc_depth.1.bias", "visual_fc_depth/bias", ""),
+    ]
+    if use_rgb:
+        r += [
+            ("visual_fc_rgb.1.weight", "visual_fc_rgb/kernel", "T"),
+            ("visual_fc_rgb.1.bias", "visual_fc_rgb/bias", ""),
+            ("visual_merge.0.weight", "visual_merge/kernel", "T"),
+            ("visual_merge.0.bias", "visual_merge/bias", ""),
+        ]
+    for i in range(num_layers):
+        r += _bert_layer_rules(f"waypoint_TRM.bert.encoder.layer.{i}",
+                               f"layer_{i}")
+    r += [
+        ("vis_classifier.0.weight", "cls_hidden/kernel", "T"),
+        ("vis_classifier.0.bias", "cls_hidden/bias", ""),
+        ("vis_classifier.2.weight", "cls_out/kernel", "T"),
+        ("vis_classifier.2.bias", "cls_out/bias", ""),
+    ]
+    return r
+
+
+def import_torch_waypoint(
+    state_dict: Dict[str, Any], model: nn.Module,
+    num_layers: int = 2, use_rgb: bool = True, strict: bool = False,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, List[str]]]:
+    """A released waypoint checkpoint (TRM_net key space) onto the port's
+    WaypointPredictor `model` (gridmm_tpu/utils/checkpoint.py:783). Pass
+    ckpt['predictor']['state_dict'] for the released files. The depth-only
+    (RxR) checkpoint also carries visual_merge / mergefeats_LayerNorm
+    weights the reference forward never applies: they are reported unused,
+    not errors. Returns (state_dict for `model`, report)."""
+    sd = _strip_prefixes(state_dict)
+    return _apply_rules(sd, waypoint_rules(num_layers, use_rgb), model,
+                        strict)
+
+
+def import_timm_vit(state_dict: Dict[str, Any],
+                    model: ClipVisionTransformer) -> Dict[str, torch.Tensor]:
+    """timm vit_base_patch16_224 state_dict -> a strict state dict for the
+    port's ClipVisionTransformer built with `vit_b16_timm()`
+    (gridmm_tpu/utils/checkpoint.py:848), the CE policy's live view encoder
+    (vit_base_p16_224.pth; gridmap/vilmodel.py:631). patch_embed.proj
+    (width, 3, p, p) becomes the patchify Linear, whose input is the
+    (ph, pw, channel)-ordered patch; a missing key raises."""
+    sd = _strip_prefixes(state_dict)
+    # some timm checkpoints nest under 'model'
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items()
+              if k.startswith("model.")}
+    width = model.cfg.width
+
+    def t(key):
+        return torch.as_tensor(sd[key]).detach().to(torch.float32)
+
+    out = {
+        "conv1.weight": t("patch_embed.proj.weight").permute(
+            0, 2, 3, 1).reshape(width, -1),
+        "conv1.bias": t("patch_embed.proj.bias"),
+        "class_embedding": t("cls_token").reshape(width),
+        "positional_embedding": t("pos_embed").reshape(-1, width),
+        "ln_post.weight": t("norm.weight"),
+        "ln_post.bias": t("norm.bias"),
+    }
+    for i in range(model.cfg.layers):
+        s, d = f"blocks.{i}", f"resblock.{i}"
+        out.update({
+            f"{d}.attn_in_proj.weight": t(f"{s}.attn.qkv.weight"),
+            f"{d}.attn_in_proj.bias": t(f"{s}.attn.qkv.bias"),
+            f"{d}.attn_out_proj.weight": t(f"{s}.attn.proj.weight"),
+            f"{d}.attn_out_proj.bias": t(f"{s}.attn.proj.bias"),
+            f"{d}.mlp_c_fc.weight": t(f"{s}.mlp.fc1.weight"),
+            f"{d}.mlp_c_fc.bias": t(f"{s}.mlp.fc1.bias"),
+            f"{d}.mlp_c_proj.weight": t(f"{s}.mlp.fc2.weight"),
+            f"{d}.mlp_c_proj.bias": t(f"{s}.mlp.fc2.bias"),
+            f"{d}.ln_1.weight": t(f"{s}.norm1.weight"),
+            f"{d}.ln_1.bias": t(f"{s}.norm1.bias"),
+            f"{d}.ln_2.weight": t(f"{s}.norm2.weight"),
+            f"{d}.ln_2.bias": t(f"{s}.norm2.bias"),
+        })
+    return strict_state_dict(model, out, "timm ViT import")
+
+
+def strict_state_dict(model: nn.Module, out: Dict[str, torch.Tensor],
+                      what: str) -> Dict[str, torch.Tensor]:
+    """`out` when it fills every parameter of `model` with a tensor of the
+    parameter's shape and holds no other key; raises otherwise."""
+    want = model.state_dict()
+    missing = sorted(set(want) - set(out))
+    extra = sorted(set(out) - set(want))
+    if missing or extra:
+        raise KeyError(f"{what}: parameters not filled {missing}; keys "
+                       f"without a parameter {extra}")
+    for k, v in out.items():
+        if tuple(v.shape) != tuple(want[k].shape):
+            raise ValueError(f"{what}: shape mismatch at {k}: "
+                             f"{tuple(v.shape)} vs {tuple(want[k].shape)}")
+    return out

@@ -648,3 +648,96 @@ def test_bundle_round_trip_on_card(tmp_path):
     assert served.graph_launches == {"grid_pool_fwd": 1}
     _assert_outs_close(_drive(served, texts, rows, 2),
                        _drive(live, texts, rows, 2))
+
+
+# ------------------------------------------------------------------ VLN-CE
+@pytest.mark.cuda
+def test_ce_waypoint_nms_on_card_is_bit_exact():
+    """waypoint_nms on the card keeps the CPU's peaks bit for bit (argmax
+    ties to the first flat index on both)."""
+    _require_card()
+    from gridmm_tpu_torch.models.waypoint import waypoint_nms
+
+    rng = np.random.default_rng(0)
+    probs = torch.softmax(torch.from_numpy(
+        rng.normal(size=(8, 120 * 12)).astype(np.float32) * 3), -1).reshape(
+        8, 120, 12)
+    probs[0] = 0.0
+    probs[0, 30, 4] = probs[0, 90, 2] = 0.5          # a tie
+    got = waypoint_nms(probs.cuda(), 5, (7.0, 5.0)).cpu()
+    assert torch.equal(got, waypoint_nms(probs, 5, (7.0, 5.0)))
+
+
+@pytest.mark.cuda
+def test_ce_tiny_rollouts_card_match_cpu():
+    """The tiny CE agent (CLIP head_dim 16: the per-head kernel) on the card
+    takes the CPU agent's actions through the fused step and the host
+    path, and launches K1, K3 and K4."""
+    _require_card()
+    from gridmm_tpu_torch.ce.env import SyntheticContinuousEnv
+    from gridmm_tpu_torch.ce.factory import build_ce_agent
+    from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_FWD
+    from gridmm_tpu_torch.ops.cuda.grid_pool import GRID_POOL_FWD
+    from gridmm_tpu_torch.ops.cuda.layernorm import LAYERNORM_FWD
+
+    paths = {}
+    for dev in ("cpu", "cuda"):
+        _, agent = build_ce_agent(tiny=True, seed=2, device=dev)
+        for fused in (True, False):
+            agent.fused_rollout = fused
+            env = SyntheticContinuousEnv(num_envs=2, image_size=56,
+                                         depth_size=256, seed=3)
+            before = [k.launches for k in (GRID_POOL_FWD, LAYERNORM_FWD,
+                                           ATTENTION_FWD)]
+            agent.rollout(env, max_steps=4)
+            after = [k.launches for k in (GRID_POOL_FWD, LAYERNORM_FWD,
+                                          ATTENTION_FWD)]
+            if dev == "cuda":
+                assert all(a > b for a, b in zip(after, before))
+            paths[dev, fused] = [np.asarray(p) for p in env.paths]
+    for fused in (True, False):
+        for a, b in zip(paths["cuda", fused], paths["cpu", fused]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ce_device_step_on_card_matches_cpu():
+    """device_build_step on the card against the CPU: integer and boolean
+    fields equal, floats within 1e-5."""
+    _require_card()
+    from gridmm_tpu_torch.ce.device_step import (device_build_step,
+                                                 device_candidates)
+    from gridmm_tpu_torch.ce.factory import tiny_ce_configs
+    from gridmm_tpu_torch.models.waypoint import waypoint_nms
+
+    cfg = tiny_ce_configs()[0]
+    rng = np.random.default_rng(1)
+    b, cap = 3, cfg.model.max_action_steps
+    probs = torch.softmax(torch.from_numpy(
+        rng.normal(size=(b, 1440)).astype(np.float32) * 3), -1).reshape(
+        b, 120, 12)
+    args = dict(
+        view_cls=torch.from_numpy(rng.standard_normal((b, 12, 64)).astype(
+            np.float32)),
+        depth=torch.from_numpy(rng.uniform(0, 1, (b, 12, 256, 256)).astype(
+            np.float32)),
+        pos_xy=torch.from_numpy(rng.uniform(-4, 4, (b, 2)).astype(
+            np.float32)),
+        heading=torch.from_numpy(rng.uniform(-3, 3, (b,)).astype(np.float32)),
+        traj_pos=torch.from_numpy(rng.normal(size=(b, cap, 3)).astype(
+            np.float32)),
+        traj_dist=torch.from_numpy(rng.uniform(0, 2, (b, cap)).astype(
+            np.float32)),
+        traj_len=torch.tensor([1, 2, 3], dtype=torch.int32),
+        t=torch.tensor(2), ended=torch.tensor([False, True, False]))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cand = device_candidates(waypoint_nms(probs.to(dev), 5), 5)
+        out[dev] = device_build_step(
+            cfg, cand, **{k: v.to(dev) for k, v in args.items()})
+    for f, a, c in zip(out["cpu"]._fields, out["cuda"], out["cpu"]):
+        a = a.cpu()
+        if a.is_floating_point():
+            torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5, msg=f)
+        else:
+            assert torch.equal(a, c), f

@@ -85,6 +85,35 @@ def test_extractor_raises_renderer_errors():
         raise AssertionError("the renderer's error was swallowed")
 
 
+def test_extractor_producer_stops_when_the_sink_raises():
+    """A sink that raises on the first panorama ends the run with its
+    error, and the render thread, blocked on the full queue behind it,
+    is gone within a few seconds."""
+    import threading
+    import time
+
+    cfg = TV.ClipVisionConfig(input_resolution=64, patch_size=32, width=64,
+                              layers=1, heads=4, compute_dtype="float32")
+    ex = TD.ClipFeatureExtractor(cfg, batch_panos=1, device="cpu")
+    many = [("scanA", f"vp{i}") for i in range(40)]
+
+    def sink(scan, vp, tokens, depth):
+        raise RuntimeError("sink is full")
+
+    before = set(threading.enumerate())
+    try:
+        ex.run(TD.synthetic_renderer(many, resolution=64), sink, prefetch=1)
+    except RuntimeError as exc:
+        assert "sink is full" in str(exc)
+    else:
+        raise AssertionError("the sink's error was swallowed")
+    deadline = time.monotonic() + 5.0
+    while time.monotonic() < deadline and \
+            set(threading.enumerate()) - before:
+        time.sleep(0.05)
+    assert not set(threading.enumerate()) - before
+
+
 def write_connectivity(root: Path):
     """A 4-node scan: a chain 0-1-2 with a shortcut 0-2, node 3 excluded."""
     root.mkdir()

@@ -456,11 +456,30 @@ def test_trajectory_loss_variants_match_jax(tiny, train):
 
 
 def test_ce_loss_head_raises_until_ported(tiny):
-    jcfg, _, params, (jbatch, _) = tiny
-    tcfg = port_config(_no_dropout(jcfg, loss_head="ce"))
-    with pytest.raises(NotImplementedError, match="ce/device_step"):
-        TS.trajectory_loss(port_navigator(tcfg, params), tcfg,
-                           _port_batch(jbatch))
+    """The head raised until ce/device_step.py was ported; now
+    loss_head='ce' (global + local over [stop] + candidates) must match JAX:
+    loss within 1e-5 relative, every gradient leaf within 1e-4 of its max
+    (1e-7 absolute floor for analytically zero leaves). Targets are moved
+    onto [stop] or a candidate column, where the CE head is finite."""
+    jcfg, jmodel, params, (jbatch, _) = tiny
+    jcfg = _no_dropout(jcfg, loss_head="ce")
+    steps = jax.tree.map(np.array, jbatch.steps)
+    n_cand = steps.nav_types.sum(-1)
+    target = np.where(steps.target > 0, 1 + steps.target % n_cand,
+                      steps.target).astype(np.int32)
+    jbatch = jbatch._replace(steps=jbatch.steps._replace(
+        target=jnp.asarray(target)))
+    tcfg = port_config(jcfg)
+    tmodel = port_navigator(tcfg, params)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(
+        lambda p: JS.trajectory_loss(jmodel, jcfg, p, jbatch)))(params)
+    got_loss, got_grads = _port_grads(tmodel, tcfg, _port_batch(jbatch),
+                                      params)
+    assert np.isfinite(got_loss)
+    assert got_loss == pytest.approx(float(want_loss), rel=1e-5)
+    bad = {k: v for k, v in _leaf_errors(got_grads, want_grads).items()
+           if not v[0] <= 1e-4 * v[1] + 1e-7}
+    assert not bad, bad
 
 
 def test_buffer_overflow_raises(tiny):

@@ -248,3 +248,65 @@ def openai_visual_state_dict(width=64, layers=2, patch=8, res=56, seed=0):
                    f"{s}.ln_2.weight": 1.0 + arr(width),
                    f"{s}.ln_2.bias": arr(width)})
     return sd
+
+
+def jax_tiny_ce_config(preset="r2r"):
+    """The JAX factory's tiny VLN-CE config (gridmm_tpu/ce/factory.py,
+    tiny=True)."""
+    base = JC.rxr_ce_config() if preset == "rxr" else JC.r2r_ce_config()
+    return dataclasses.replace(
+        base,
+        model=JC.ModelConfig(
+            vocab_size=30522, hidden_size=64, num_attention_heads=4,
+            intermediate_size=128, num_l_layers=1, num_x_layers=1,
+            num_pano_layers=1, image_feat_size=64,
+            max_position_embeddings=32),
+        grid=dataclasses.replace(base.grid, feature_dim=64, max_steps=4),
+        shapes=JC.NavigatorShapes(max_txt_len=16, max_gmap_len=16,
+                                  max_vp_len=20, max_points=4 * 588),
+        train=JC.TrainConfig(max_action_len=4, loss_norm="actions"),
+    )
+
+
+def port_ce_agent(jagent, tcfg=None):
+    """The port's CEAgent on the CPU carrying every weight of a JAX
+    CEAgent (navigator, waypoint predictor, both towers, CLIP and the view
+    tower), converted by gridmm_tpu_torch.convert. `tcfg` overrides the
+    port config (default: port_config(jagent.cfg))."""
+    import gridmm_tpu.ce.encoders as JE
+    import gridmm_tpu_torch.ce.encoders as TE
+    import gridmm_tpu_torch.models.resnet as TR
+    from gridmm_tpu_torch.ce.agent import CEAgent
+    from gridmm_tpu_torch.convert import load_flax_params
+    from gridmm_tpu_torch.models.clip_vit import ClipVisionTransformer
+    from gridmm_tpu_torch.models.waypoint import (WaypointConfig,
+                                                  WaypointPredictor)
+
+    tcfg = tcfg or port_config(jagent.cfg)
+
+    def load(module, params):
+        return load_flax_params(module, jax.tree.map(np.asarray, params)
+                                ).eval()
+
+    jw = jagent.waypoint.cfg
+    wp_fields = {f.name: getattr(jw, f.name) for f in dataclasses.fields(jw)}
+    if jw.use_rgb:  # the flax Dense infers its input width
+        wp_fields["rgb_feat_dim"] = int(np.shape(
+            jagent.wp_params["params"]["visual_fc_rgb"]["kernel"])[0])
+    waypoint = load(WaypointPredictor(WaypointConfig(**wp_fields)),
+                    jagent.wp_params)
+    if isinstance(jagent.rgb_tower, JE.RgbTower):
+        rgb = TE.RgbTower(jagent.rgb_tower.out_ch, jagent.rgb_tower.grid)
+        depth = TE.DepthTower(jagent.depth_tower.out_ch)
+    else:
+        rgb = TR.RgbResNet50Tower()
+        depth = TR.DdppoDepthEncoder()
+    view = None
+    if jagent.view_encoder is not None:
+        view = load(ClipVisionTransformer(port_clip_config(
+            jagent.view_encoder.cfg)), jagent.view_params)
+    return CEAgent(
+        tcfg, port_navigator(tcfg, jagent.nav_params), waypoint,
+        load(ClipVisionTransformer(port_clip_config(jagent.clip.cfg)),
+             jagent.clip_params),
+        load(rgb, jagent.rgb_params), load(depth, jagent.depth_params), view)
