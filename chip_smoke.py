@@ -99,6 +99,33 @@ Phases, in order (any failure raises and the exit code is not 0):
         against the plain ops on CE_GRAD_SEED weights and three updates
         with a falling loss; the tiny CE agent (head_dim 16: K4) card vs
         CPU, one rollout and one update;
+      - int8 serving at r2r_config() width (PR 10): a graphed create engine
+        with int8_matmuls serves the same 6 requests x 18 steps on the
+        f32 engine's weights; finite patterns equal to the f32 engine's,
+        cosine > 0.99 and max|diff| / spread < 0.2 at every step (the JAX
+        test's gates); the int8 GEMM on identical operands at the step's
+        shapes card vs CPU (equal int32 sums); an int8 first step at tiny
+        width card vs CPU within 2e-3 of the spread (the CPU parity test's
+        tolerance at that width), at r2r width within 5e-2 beside its
+        witness (the CPU's own int8 step with the image features one ulp
+        off);
+        `export_serving --int8` served by from_bundle against it (1e-5 x
+        max|logit|); K1 once per step as in f32;
+      - the int8 clip_b32 tower over 192 views: bf16 tokens, per-token
+        cosine > 0.98 against the bf16 tower on the same weights, K2 12
+        and K3 26 launches;
+      - the parallel layer (PR 10), a mesh of one rank over NCCL in this
+        process: train_navigator(mesh=...) at r2r width for 2 iterations,
+        `pretrain --mesh auto --preset r2r` for one update and `run_ce
+        --mesh auto --full` for one batch, each against the same run
+        without a mesh on the same seed within 1e-6 relative (a mesh of one
+        rank runs no gradient collective; the loss's global counts and the
+        stray-key max are NCCL all-reduces over the group of one); then two
+        ranks on the one card over gloo (spawned; NCCL refuses two ranks on
+        one device): one make_train_step update at r2r width, 16
+        trajectories split 8 + 8 with uneven action counts and the clip
+        active, against one process on all 16: the same loss, every leaf
+        within 1e-5 of its max, K1, K5a and K5b launched on each rank;
   (e) times with CUDA events (kernel, plain version, library yardstick,
       bound; the pool at the serving, pipeline and train shapes; LayerNorm
       at the tower's and the tiny tower's widths in both types; K4 at the
@@ -117,10 +144,13 @@ Phases, in order (any failure raises and the exit code is not 0):
       at the grid tower's and the view tower's shapes for 48 views, SDPA
       with its backend named; the CE rollout step (fused and host path,
       the agent's own time per step) and the CE update's time and peak
-      memory; each beside the card; every phase's seconds;
+      memory; the int8 serving step (graphed create and from_bundle)
+      beside the f32 ones; each beside the card; every phase's seconds;
   (f) the kernels line (every kernel with a `ce` entry: its launches on
       the run_ce path, K4's on the tiny CE agent's, and its times at the
-      CE shapes); (g) the result line, last.
+      CE shapes; K1, K2 and K3 with an `int8` entry, the kernels of the
+      mesh runs with a `mesh` entry: launches on the one-rank mesh and on
+      each of the two gloo ranks); (g) the result line, last.
 
 `python3 chip_smoke.py --ce-only` runs (a), (b) and the VLN-CE phases
 alone and prints no result line.
@@ -688,7 +718,7 @@ def main_path(report):
                            "steps": n_steps, "launches": launches,
                            "fused_logits_max_abs_diff_vs_plain": worst,
                            "parameters": n_params}
-    return eng, cfg, rows, texts
+    return eng, cfg, rows, texts, fused_kernel
 
 
 def tiny_cpu_reference():
@@ -2872,6 +2902,530 @@ def ce_kernel_entries(report, timing, k4):
         **{f: timing["attention_fwd"][f] for f in fields}}
 
 
+# ------------------------------------- (d) int8 serving, the parallel layer
+# the int8 navigator card vs CPU at tiny_config() width:
+# tests/test_torch_quant.py's tolerance at that width (one quantization
+# step, relative to the logits' spread)
+INT8_STEP_TOL = 2e-3
+# the same at r2r_config() width: the card's and the CPU's f32 activations
+# differ in their last bits, an activation on a rounding boundary moves one
+# int8 step, and 13 layers carry it on; image features one ulp off move the
+# CPU's own int8 logits by as much (the witness printed beside it). Read
+# 2.1e-2 on an NVIDIA H100 80GB HBM3 at 700 W
+INT8_R2R_TOL = 5e-2
+# int8 against f32 on the same weights: tests/test_int8_nav.py's gates, and
+# test_misc.py's token cosine for the tower
+INT8_COS, INT8_SPREAD, CLIP_INT8_COS = 0.99, 0.2, 0.98
+# a mesh of one rank against the run without it: the same kernels on the
+# same seeds; only atomics' order (K5b, cuBLAS split-K) may move last bits
+MESH_REL_TOL = 1e-6
+# the two-rank update: dropout off (the ranks draw different masks), Adam
+# eps 1e-2 (a zero gradient's rounding noise would decide a whole +-lr at
+# 1e-6, as the CPU tests note), a clip the gradient norm exceeds, and the
+# VLN-CE norm, whose per-rank action counts differ
+DP_CLIP, DP_EPS, DP_B = 1.0, 1e-2, 16
+# run_ce under a mesh: the depth of its episodes (CE_STEPS cut to half)
+MESH_CE_STEPS = 10
+
+
+def int8_cfg(cfg):
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, int8_matmuls=True))
+
+
+def int8_gemm_card_vs_cpu():
+    """The int8 product (ops/quant._int_mm: cuBLASLt on the card, its rows
+    padded where m <= 16) against the CPU's on identical int8 operands at
+    the serving step's shapes: the int32 sums must be equal; and
+    int8_dense on identical float inputs within 1e-6 of the output's
+    max."""
+    from gridmm_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(4, 768, 768), (17, 768, 768), (4 * 40, 768, 3072),
+              (4 * 200, 3072, 768), (4 * 64, 768, 2304)]
+    worst = 0.0
+    for m, k, n in shapes:
+        xq = torch.randint(-127, 128, (m, k), generator=gen,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), generator=gen,
+                           dtype=torch.int8)
+        got = Q._int_mm(xq.cuda(), wq.cuda().t()).cpu()
+        require(torch.equal(got, Q._int_mm(xq, wq.t())),
+                f"int8 GEMM card vs CPU at {(m, k, n)}: int32 sums differ")
+        x = torch.randn(m, k, generator=gen)
+        w = torch.randn(n, k, generator=gen) * 0.02
+        b = torch.randn(n, generator=gen)
+        y = Q.int8_dense(x.cuda(), w.cuda(), b.cuda()).cpu()
+        ref = Q.int8_dense(x, w, b)
+        err = ((y - ref).abs().max() / ref.abs().max()).item()
+        require(err <= 1e-6, f"int8_dense card vs CPU at {(m, k, n)}: "
+                f"{err:.3e} of the max")
+        worst = max(worst, err)
+    print(f"  int8 GEMM card vs CPU at {shapes}: equal int32 sums; "
+          f"int8_dense within {worst:.2e} of the output's max")
+    return {"shapes": shapes, "int8_dense_worst_rel": worst}
+
+
+def int8_step_card_vs_cpu(cfg8, rows, texts, model=None, witness=False):
+    """The first step of 4 slots, int8, on the card against the CPU (the
+    same seed-0 weights); max|diff| over the CPU logits' spread. Rows and
+    texts are made for cfg8 where none are given. With `witness`, also the
+    same measure between the CPU's step and the CPU's step again with every
+    image feature moved one ulp up or down at random: how far the int8
+    logits move where the f32 inputs differ in their last bits; else
+    None."""
+    if rows is None:
+        rng = np.random.default_rng(2)
+        texts = [request_text(cfg8, rng) for _ in range(SERVE_SLOTS)]
+        rows = [[step_row(cfg8, rng, 0)] for _ in range(SERVE_SLOTS)]
+    model = model or init_navigator(cfg8.model, seed=0, device="cuda")
+    card = first_step(model, cfg8, rows, texts, "cuda")
+    cpu_model = init_navigator(cfg8.model, seed=0, device="cpu")
+    cpu = first_step(cpu_model, cfg8, rows, texts, "cpu")
+
+    def over_spread(a, b, what):
+        fin = torch.isfinite(b)
+        require(torch.equal(torch.isfinite(a), fin),
+                f"int8 {what}: finite patterns differ")
+        return float((a[fin] - b[fin]).abs().max()
+                     / (b[fin].max() - b[fin].min()))
+
+    err = over_spread(card, cpu, "card vs CPU")
+    if not witness:
+        return err, None
+    rng = np.random.default_rng(3)
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+    nudged = []
+    for r in rows:
+        f = r[0].view_img_fts
+        to = np.where(rng.random(f.shape) < 0.5, down, up).astype(np.float32)
+        nudged.append([r[0]._replace(view_img_fts=np.nextafter(f, to))])
+    cpu_nudged = first_step(cpu_model, cfg8, nudged, texts, "cpu")
+    return err, over_spread(cpu_nudged, cpu, "CPU vs CPU one ulp off")
+
+
+def first_step(model, cfg, rows, texts, device):
+    """The fused logits of the first 4 requests' first step, through a
+    `create` engine on `device` (eager)."""
+    eng = NavServingEngine.create(model, cfg, SERVE_SLOTS, device=device,
+                                  cuda_graph=False)
+    for r in range(SERVE_SLOTS):
+        eng.submit(r, *texts[r])
+    eng.admit()
+    out = eng.step({r: rows[r][0] for r in range(SERVE_SLOTS)})
+    return out.fused_logits.float().cpu()
+
+
+def int8_serving_path(report, cfg, rows, texts, fused_f32):
+    """(d) int8 serving at r2r_config() width: a graphed create engine with
+    int8_matmuls serves the main path's 6 requests x 18 steps on the same
+    seed-0 weights; its logits against the f32 engine's (the JAX test's
+    gates), its first step against the same int8 step on the CPU, and the
+    --int8 bundle against it. Returns (launches, the int8 engine, the
+    bundle's), which phase e times beside the f32 engines."""
+    cfg8 = int8_cfg(cfg)
+    model8 = init_navigator(cfg8.model, seed=0, device="cuda")
+    n_steps = FIRST_STEPS + LATER_STEPS
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    fused8, eng8 = run_engine(model8, cfg8, rows, texts)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = path_launches(counts(), [eng8])
+    require(launches["grid_pool_fwd"] == n_steps + 1,
+            f"int8 serving: K1 launched {launches['grid_pool_fwd']} times")
+    worst_cos, worst_spread = 1.0, 0.0
+    for s, (a, b) in enumerate(zip(fused8, fused_f32)):
+        fin = torch.isfinite(b)
+        require(torch.equal(torch.isfinite(a), fin),
+                f"int8 step {s}: finite pattern differs from f32")
+        x, y = a[fin].double(), b[fin].double()
+        cos = float(x @ y / (x.norm() * y.norm() + 1e-12))
+        spread = float((x - y).abs().max() / (y.max() - y.min() + 1e-9))
+        worst_cos, worst_spread = min(worst_cos, cos), max(worst_spread,
+                                                           spread)
+    require(worst_cos > INT8_COS and worst_spread < INT8_SPREAD,
+            f"int8 vs f32: cosine {worst_cos:.5f}, max|diff|/spread "
+            f"{worst_spread:.4f}")
+    print(f"  int8 engine, {n_steps} steps over {SERVE_SLOTS} slots, "
+          f"CUDA-graphed ({wall:.2f}s); launches {launches}; against the "
+          f"f32 engine: finite patterns equal, cosine >= {worst_cos:.6f} "
+          f"(gate {INT8_COS}), max|diff|/spread <= {worst_spread:.5f} "
+          f"(gate {INT8_SPREAD})")
+
+    # the int8 step on the card against the port's int8 step on the CPU:
+    # the GEMM on identical int8 operands at the step's shapes (equal int32
+    # sums), then the step at tiny_config() width, where the parity test's
+    # tolerance was measured, and at r2r width beside its witness
+    gemm = int8_gemm_card_vs_cpu()
+    step_err, _ = int8_step_card_vs_cpu(int8_cfg(tiny_config()), rows=None,
+                                        texts=None)
+    require(step_err < INT8_STEP_TOL, f"int8 card vs CPU, tiny width: "
+            f"{step_err:.3e} of the spread > {INT8_STEP_TOL}")
+    r2r_err, r2r_ulp = int8_step_card_vs_cpu(cfg8, rows, texts, model8,
+                                             witness=True)
+    require(r2r_err < INT8_R2R_TOL, f"int8 card vs CPU, r2r width: "
+            f"{r2r_err:.3e} of the spread > {INT8_R2R_TOL}")
+    print(f"  int8 step card vs CPU, first step of 4 slots: tiny width "
+          f"{step_err:.3e} of the logits' spread (tolerance "
+          f"{INT8_STEP_TOL}); r2r width {r2r_err:.3e} (tolerance "
+          f"{INT8_R2R_TOL}); witness: the CPU's int8 step with the image "
+          f"features one ulp off moves {r2r_ulp:.3e}")
+
+    # the --int8 bundle: its programs quantize the weights they are given
+    out_dir = ROOT / "runs" / "chip_smoke" / "int8_bundle"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    manifest = export_cli_mod.main(["--config", "r2r", "--int8", "--batch",
+                                    str(SERVE_SLOTS), "--device", "cuda",
+                                    "--out_dir", str(out_dir)])
+    export_s = time.time() - t0
+    require(manifest["int8"] is True, "the --int8 manifest says int8 false")
+    served8_logits, served8 = run_engine(
+        None, cfg8, rows, texts, make=lambda: NavServingEngine.from_bundle(
+            str(out_dir), cfg8, dict(model8.state_dict()), SERVE_SLOTS))
+    bundle_diff, bundle_bits = compare_logits(served8_logits, fused8,
+                                              "int8 bundle vs int8 create")
+    print(f"  export_serving --int8 at r2r width in {export_s:.1f}s; "
+          f"from_bundle vs create, {n_steps} steps: max|diff| "
+          f"{bundle_diff:.3e} (equal bits: {bundle_bits})")
+    for p in out_dir.glob("*.pt2"):
+        p.unlink()
+    report["int8_serving"] = {
+        "steps": n_steps, "launches": launches, "wall_s": wall,
+        "cosine_vs_f32_min": worst_cos,
+        "max_diff_over_spread_vs_f32": worst_spread, "gemm": gemm,
+        "card_vs_cpu_over_spread_tiny": step_err,
+        "card_vs_cpu_over_spread_r2r": r2r_err,
+        "cpu_one_ulp_over_spread_r2r": r2r_ulp, "export_s": export_s,
+        "bundle_vs_create_max_abs_diff": bundle_diff,
+        "bundle_vs_create_equal_bits": bundle_bits}
+    return launches, eng8, served8
+
+
+def int8_clip_path(report, dev_name):
+    """(d) int8 CLIP at clip_b32() width: the int8 tower's tokens against
+    the bf16 tower's on the same weights (cosine per token > 0.98), K2 and
+    K3 counted, and views/s of both on 192 views."""
+    ex = ClipFeatureExtractor(clip_b32(), device="cuda")
+    ex8 = ClipFeatureExtractor(int8_cfg_clip(), device="cuda")
+    ex8.model.load_state_dict(ex.model.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randint(0, 256, (PIPE_PANOS * VIEWS, 224, 224, 3),
+                           generator=gen, device="cuda", dtype=torch.uint8)
+    torch.cuda.synchronize()
+    reset_counts()
+    tokens8 = ex8.encode(images)
+    torch.cuda.synchronize()
+    launches = counts()
+    require(launches["attention_qkv_fwd"] == 12
+            and launches["layernorm_fwd"] == 26,
+            f"int8 tower launches {launches}")
+    tokens = ex.encode(images)
+    require(tokens8.dtype == torch.bfloat16 and tokens8.shape == tokens.shape
+            and torch.isfinite(tokens8).all().item(),
+            "int8 tower: not finite bf16 tokens of the bf16 tower's shape")
+    a = tokens8.float().reshape(-1, tokens.shape[-1])
+    b = tokens.float().reshape(-1, tokens.shape[-1])
+    cos = (F.cosine_similarity(a, b, dim=-1)).min().item()
+    require(cos > CLIP_INT8_COS, f"int8 tower tokens: min cosine {cos:.4f}")
+    views = images.shape[0]
+    res = {"launches": launches, "min_token_cosine_vs_bf16": cos}
+    for label, e in (("int8", ex8), ("bf16", ex)):
+        for _ in range(3):
+            e.encode(images)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            e.encode(images)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / 10
+        res[f"{label}_views_per_s"] = views / sec
+    print(f"  int8 clip_b32 tower, {views} views: launches {launches}; "
+          f"min token cosine vs bf16 {cos:.5f} (gate {CLIP_INT8_COS}); "
+          f"int8 {res['int8_views_per_s']:.1f} views/s, bf16 "
+          f"{res['bf16_views_per_s']:.1f} views/s, host clock over 10 "
+          f"[{dev_name}]")
+    report["int8_clip"] = res
+    return launches
+
+
+def int8_cfg_clip():
+    return dataclasses.replace(clip_b32(), int8_matmuls=True)
+
+
+def rel_close(a, b, tol):
+    return abs(a - b) <= tol * max(abs(b), 1e-30)
+
+
+def metrics_lines(path, key):
+    return [rec[key] for rec in map(json.loads, Path(path).read_text()
+                                    .splitlines()) if key in rec]
+
+
+def mesh_world1_path(report):
+    """(d) the parallel layer at world size 1 over NCCL, in this process:
+    train_navigator(mesh=...) at r2r width for 2 iterations, `pretrain
+    --mesh auto --preset r2r` for one update and `run_ce --mesh auto
+    --full` for one epoch, each against the same run without a mesh on
+    the same seed (MESH_REL_TOL relative)."""
+    import torch.distributed as dist
+
+    from gridmm_tpu_torch.config import MeshConfig
+    from gridmm_tpu_torch.parallel.mesh import init_world, make_mesh
+
+    out = {}
+    total = {k.name: 0 for k in KERNELS}
+
+    def add(c):
+        for k, v in c.items():
+            total[k] += v
+
+    # train_navigator, 2 iterations (teacher, sample) with evaluation
+    cfg = dataclasses.replace(r2r_config(), train=dataclasses.replace(
+        r2r_config().train, batch_size=LOOP_BATCH))
+    runs = {}
+    for meshed in (False, True):
+        model = init_navigator(cfg.model, seed=1, device="cuda")
+        agent, val_agent = synthetic_agents(model, cfg, LOOP_BATCH)
+        log_dir = ROOT / "runs" / "chip_smoke" / f"mesh_loop_{meshed}"
+        shutil.rmtree(log_dir, ignore_errors=True)
+        from gridmm_tpu_torch.utils.logging import MetricLogger
+
+        logger = MetricLogger(str(log_dir))
+        created = init_world("cuda") if meshed else False
+        try:
+            mesh = make_mesh(MeshConfig(), "cuda") if meshed else None
+            if meshed:
+                # the loss's global counts and the stray-key max run as
+                # all-reduces over the data group of one
+                backend = dist.get_backend(mesh.get_group(0))
+                require(backend == "nccl", f"the mesh's data group runs "
+                        f"{backend}, not NCCL")
+            reset_counts()
+            t0 = time.perf_counter()
+            res = train_navigator(cfg, model, agent, val_agent,
+                                  iters=LOOP_ITERS, log_every=1,
+                                  eval_batches=1, seed=0, logger=logger,
+                                  mesh=mesh)
+            torch.cuda.synchronize()
+            out[f"train_navigator_s_{'mesh' if meshed else 'plain'}"] = (
+                time.perf_counter() - t0)
+            if meshed:
+                add(counts())
+                out["train_navigator_launches"] = counts()
+        finally:
+            logger.close()
+            if created:
+                dist.destroy_process_group()
+        runs[meshed] = (metrics_lines(log_dir / "metrics.jsonl",
+                                      "train/loss"), res, model.state_dict())
+        del agent, val_agent
+    (l0, r0, s0), (l1, r1, s1) = runs[False], runs[True]
+    require(len(l0) == LOOP_ITERS and all(rel_close(a, b, MESH_REL_TOL)
+                                          for a, b in zip(l1, l0)),
+            f"train_navigator with a mesh: losses {l1} against {l0}")
+    require(r1.best_spl == r0.best_spl, f"best SPL {r1.best_spl} against "
+            f"{r0.best_spl}")
+    # every leaf within MESH_REL_TOL of its max, over a floor of 1e-6 of the
+    # largest leaf's max: the key biases, whose gradient is zero
+    # analytically, hold ~1e-8 of rounding noise that Adam moves by ~1e-7
+    worst = compare_grads(s1, s0, MESH_REL_TOL,
+                          "train_navigator with a mesh: weights")
+    for n in ("grid_pool_fwd", "grid_pool_bwd1", "grid_pool_bwd2"):
+        require(out["train_navigator_launches"][n] > 0,
+                f"{n} did not launch under the mesh")
+    print(f"  train_navigator(mesh=(1, 1) over NCCL), r2r width, "
+          f"{LOOP_ITERS} iterations: losses {l1} against {l0} without; "
+          f"every leaf within {MESH_REL_TOL} of its max plus 1e-6 of the "
+          f"largest leaf's max (worst ratio over the leaves above that "
+          f"floor {worst:.2e}); launches {out['train_navigator_launches']}; "
+          f"{out['train_navigator_s_mesh']:.2f}s against "
+          f"{out['train_navigator_s_plain']:.2f}s without")
+    out["train_navigator"] = {"losses": l1, "plain_losses": l0,
+                              "weights_worst_rel": worst}
+    del runs, s0, s1
+
+    # pretrain --mesh auto --preset r2r, one update and its validation
+    runs = {}
+    for meshed in (False, True):
+        d = ROOT / "runs" / "chip_smoke" / f"mesh_pretrain_{meshed}"
+        shutil.rmtree(d, ignore_errors=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        pretrain_cli(["--steps", "1", "--valid_every", "1", "--tasks",
+                      "mlm,sap", "--mix_ratio", "1,1"]
+                     + (["--mesh", "auto", "--mp_size", "1"] if meshed
+                        else []), d)
+        torch.cuda.synchronize()
+        out[f"pretrain_s_{'mesh' if meshed else 'plain'}"] = (
+            time.perf_counter() - t0)
+        if meshed:
+            add(counts())
+            out["pretrain_launches"] = counts()
+        recs = [json.loads(x) for x in (d / "metrics.jsonl").read_text()
+                .splitlines()]
+        runs[meshed] = [(k, v) for r in recs for k, v in sorted(r.items())
+                        if k != "step"]
+    require([k for k, _ in runs[True]] == [k for k, _ in runs[False]]
+            and all(rel_close(a, b, MESH_REL_TOL) for (_, a), (_, b)
+                    in zip(runs[True], runs[False])),
+            f"pretrain with a mesh: {runs[True]} against {runs[False]}")
+    print(f"  pretrain --mesh auto --preset r2r, one update: {runs[True]} "
+          f"against {runs[False]} without; launches "
+          f"{out['pretrain_launches']}; {out['pretrain_s_mesh']:.2f}s "
+          f"against {out['pretrain_s_plain']:.2f}s without (the CLI's "
+          f"whole run)")
+    out["pretrain"] = {"meshed": runs[True], "plain": runs[False]}
+
+    # run_ce --mesh auto --full, one epoch of one batch and one eval batch
+    runs = {}
+    for meshed in (False, True):
+        d = ROOT / "runs" / "chip_smoke" / f"mesh_ce_{meshed}"
+        shutil.rmtree(d, ignore_errors=True)
+        argv = ["--full", "--num_envs", str(CE_ENVS), "--epochs", "1",
+                "--batches_per_epoch", "1", "--eval_batches", "1",
+                "--max_steps", str(MESH_CE_STEPS), "--device", "cuda",
+                "--seed", "0", "--output_dir", str(d)]
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = run_ce_mod.main(argv + (["--mesh", "auto"] if meshed
+                                          else []))
+        torch.cuda.synchronize()
+        out[f"run_ce_s_{'mesh' if meshed else 'plain'}"] = (
+            time.perf_counter() - t0)
+        if meshed:
+            add(counts())
+            out["run_ce_launches"] = counts()
+        runs[meshed] = (metrics_lines(d / "metrics.jsonl", "ce_train/loss"),
+                        metrics)
+    (l0, m0), (l1, m1) = runs[False], runs[True]
+    require(len(l1) == 1 and rel_close(l1[0], l0[0], MESH_REL_TOL)
+            and m1.keys() == m0.keys()
+            and all(rel_close(m1[k], m0[k], MESH_REL_TOL) for k in m0),
+            f"run_ce with a mesh: loss {l1}, eval {m1} against {l0}, {m0}")
+    print(f"  run_ce --mesh auto --full, one batch of {CE_ENVS} envs x "
+          f"{MESH_CE_STEPS} steps and an eval batch: loss {l1} against "
+          f"{l0}; eval equal; launches {out['run_ce_launches']}; "
+          f"{out['run_ce_s_mesh']:.2f}s against {out['run_ce_s_plain']:.2f}s "
+          f"without")
+    out["run_ce"] = {"loss": l1, "plain_loss": l0, "eval": m1}
+    out["launches"] = total
+    report["mesh_world1"] = out
+    return total
+
+
+def dp_config():
+    cfg = r2r_config()
+    return dataclasses.replace(
+        cfg,
+        model=dataclasses.replace(cfg.model, hidden_dropout_prob=0.0,
+                                  attention_probs_dropout_prob=0.0,
+                                  feat_dropout=0.0),
+        train=dataclasses.replace(cfg.train, grad_norm_clip=DP_CLIP,
+                                  adam_eps=DP_EPS, loss_norm="actions"))
+
+
+def dp_batch(cfg):
+    """DP_B trajectories x 15 steps; the second half's targets ignored
+    after step 4, so the two ranks' halves count 120 and 40 actions."""
+    batch = synthetic_trajectory_batch(cfg, DP_B, TRAIN_STEPS, seed=0,
+                                       device="cuda")
+    target = batch.steps.target.clone()
+    target[4:, DP_B // 2:] = cfg.train.ignoreid
+    return batch._replace(steps=batch.steps._replace(target=target))
+
+
+def dp_rank_update(rank, world, ref_path):
+    """One rank of the two-rank update on the card (gloo): the rank's 8
+    trajectories, one make_train_step update; rank 0 holds the updated
+    weights against one process's (ref_path)."""
+    from gridmm_tpu_torch.config import MeshConfig
+    from gridmm_tpu_torch.parallel.mesh import (ShardedParams, data_rank,
+                                                make_mesh,
+                                                shard_trajectory_batch)
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dp_config()
+    mesh = make_mesh(MeshConfig(), "cuda")
+    model = init_navigator(cfg.model, seed=GRAD_SEED, device="cuda").train()
+    sharded = ShardedParams(model, mesh)
+    state = create_train_state(cfg, model, sharded=sharded)
+    local = shard_trajectory_batch(dp_batch(cfg), data_rank(mesh), world)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = make_train_step(cfg)(state, local, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "launches": counts(), "update_s": wall,
+           "local_batch": int(local.txt_ids.shape[0])}
+    if rank == 0:
+        # every leaf within 1e-5 of its max (compare_grads' floor covers
+        # the key biases' rounding noise)
+        ref = torch.load(ref_path, map_location="cuda", weights_only=True)
+        out["weights_worst_rel"] = compare_grads(
+            sharded.full_state_dict(), ref, 1e-5, "two ranks: weights")
+    return out
+
+
+def two_rank_dp_path(report):
+    """(d) two ranks on the one card over gloo (NCCL refuses two ranks on
+    one device; gloo takes CUDA tensors for all_reduce): one
+    make_train_step update at r2r width, 16 trajectories split 8 + 8 with
+    uneven action counts and the clip active, against one process on all
+    16: the same loss and grad norm, each leaf within 1e-5 of its max; K1,
+    K5a and K5b launch on each rank."""
+    from gridmm_tpu_torch.parallel.dryrun import spawn_ranks
+
+    cfg = dp_config()
+    model = init_navigator(cfg.model, seed=GRAD_SEED, device="cuda").train()
+    state = create_train_state(cfg, model)
+    t0 = time.perf_counter()
+    want = make_train_step(cfg)(state, dp_batch(cfg), seed=0)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    want = {k: float(v) for k, v in want.items()}
+    require(want["grad_norm"] > DP_CLIP, f"the clip is not active: grad "
+            f"norm {want['grad_norm']:.4f}")
+    ref_path = ROOT / "runs" / "chip_smoke" / "dp_reference.pt"
+    ref_path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(model.state_dict(), ref_path)
+    del model, state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_rank_update, 2, str(ref_path), timeout=400)
+    wall = time.perf_counter() - t0
+    ref_path.unlink()
+    for r, got in enumerate(ranks):
+        require(got["local_batch"] == DP_B // 2, f"rank {r}'s batch")
+        require(rel_close(got["loss"], want["loss"], 1e-6)
+                and rel_close(got["grad_norm"], want["grad_norm"], 1e-5),
+                f"rank {r}: loss {got['loss']} grad norm {got['grad_norm']}"
+                f" against one process's {want}")
+        for n in ("grid_pool_fwd", "grid_pool_bwd1", "grid_pool_bwd2"):
+            require(got["launches"][n] > 0, f"rank {r}: {n} did not launch")
+    print(f"  two ranks on one card over gloo, r2r width, {DP_B} "
+          f"trajectories split 8 + 8 (120 and 40 actions), clip "
+          f"{DP_CLIP} < grad norm {want['grad_norm']:.4f}: loss "
+          f"{ranks[0]['loss']:.7f} against one process's "
+          f"{want['loss']:.7f}; weights within "
+          f"{ranks[0]['weights_worst_rel']:.2e} of each leaf's max; "
+          f"launches per rank {[g['launches'] for g in ranks]}; update "
+          f"{ranks[0]['update_s']:.2f}s a rank against {one_s:.2f}s in one "
+          f"process; {wall:.1f}s with the ranks' start")
+    report["two_rank_dp"] = {"ranks": ranks, "one_process": want,
+                             "one_process_update_s": one_s, "wall_s": wall}
+    return ranks
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # --ce-only: (a), (b) and the VLN-CE phases alone, for iterating on
@@ -2935,7 +3489,7 @@ def main(argv=None) -> int:
     # (d) main paths
     t_phase = time.time()
     print("(d) main path: serving engine, r2r_config() width")
-    eng, cfg, rows, texts = main_path(report)
+    eng, cfg, rows, texts, fused_f32 = main_path(report)
     report["tiny_cpu_vs_card_max_abs_diff"] = tiny_cpu_reference()
     print("(d) main path: CLIP extractor and encode_and_pool, clip_b32() "
           "width")
@@ -2971,6 +3525,37 @@ def main(argv=None) -> int:
           f"bundle, {phase_s['d_pretrain_and_import']:.1f}s for "
           f"pretraining and the import")
     ce_trainer, ce_batch, ce_k4 = ce_phases(report, dev_name, phase_s)
+    t_phase = time.time()
+    print("(d) int8 serving at r2r_config() width and the int8 clip_b32 "
+          "tower")
+    int8_launches, eng8, served8 = int8_serving_path(report, cfg, rows,
+                                                     texts, fused_f32)
+    clip8_launches = int8_clip_path(report, dev_name)
+    phase_s["d_int8"] = time.time() - t_phase
+    t_phase = time.time()
+    print("(d) the parallel layer: a mesh of one rank over NCCL, then two "
+          "ranks on the one card over gloo")
+    mesh_launches = mesh_world1_path(report)
+    dp_ranks = two_rank_dp_path(report)
+    phase_s["d_parallel"] = time.time() - t_phase
+    print(f"    int8 {phase_s['d_int8']:.1f}s, parallel layer "
+          f"{phase_s['d_parallel']:.1f}s")
+    report["grid_pool_fwd"]["int8"] = {
+        "launches": int8_launches["grid_pool_fwd"],
+        "path": "int8 serving engine, 6 requests x 18 steps (times: the "
+                "serving shape's)"}
+    for name in ("attention_qkv_fwd", "layernorm_fwd"):
+        report[name]["int8"] = {
+            "launches": clip8_launches[name],
+            "path": "one int8 clip_b32 forward of 192 views (times: the "
+                    "encode shape's)"}
+    for name in ("grid_pool_fwd", "attention_qkv_fwd", "layernorm_fwd",
+                 "grid_pool_bwd1", "grid_pool_bwd2"):
+        report[name]["mesh"] = {
+            "launches": mesh_launches[name],
+            "path": "train_navigator, pretrain and run_ce on a mesh of one "
+                    "rank (NCCL)",
+            "two_ranks_gloo": [r["launches"][name] for r in dp_ranks]}
 
     # (e) times
     t_phase = time.time()
@@ -3057,7 +3642,10 @@ def main(argv=None) -> int:
 
     report["serving_step_ms"] = time_serving(
         [("CUDA-graphed create", live), ("eager create", eager),
-         ("CUDA-graphed from_bundle", served)], cfg, dev_name)
+         ("CUDA-graphed from_bundle", served),
+         ("int8 CUDA-graphed create", eng8),
+         ("int8 CUDA-graphed from_bundle (quantizes in the program)",
+          served8)], cfg, dev_name)
     print(f"  export of the serving bundle (language + nav_step, r2r "
           f"width, batch {SERVE_SLOTS}): {report['bundle']['export_s']:.1f}s "
           f"[{dev_name}]")
@@ -3077,7 +3665,7 @@ def main(argv=None) -> int:
         {key: report[k.name][key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "pretrain", "ce") if key in report[k.name]}
+            "pretrain", "ce", "int8", "mesh") if key in report[k.name]}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,13 +9,18 @@ teacher-forced `trajectory_loss` (K1 forward, K5a/K5b backward on the card)
 on the CE action head, fused = global+local over the [stop]+candidates
 columns (gridmap/vilmodel.py:788-800), the logits the rollout acts on.
 
-`mesh=` and multi-rank runs belong to the parallel layer, which the port
-does not have yet: a mesh raises, and the per-rank stats files are written
-as rank 0 of 1.
+`mesh=` (a (data, model) DeviceMesh, parallel/mesh.py) is the counterpart
+of the reference's DDP-wrapped CE trainer (base_il_trainer.py
+_init_distributed) and of the JAX trainer's mesh: the navigator's
+parameters follow the TP rules, the frozen perception towers stay
+replicated and are never wrapped, each rank rolls out the whole env batch
+(as the JAX program does, on one controller) and updates on its data slice
+of it, with the loss of the whole batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -29,6 +34,12 @@ import torch
 from gridmm_tpu_torch.ce.agent import CEAgent, step_to_device
 from gridmm_tpu_torch.ce.env import ContinuousEnv
 from gridmm_tpu_torch.config import GridMMConfig
+from gridmm_tpu_torch.parallel.mesh import (ShardedParams, data_rank,
+                                            mesh_shape,
+                                            shard_trajectory_batch)
+from gridmm_tpu_torch.parallel.multihost import (process_count,
+                                                 process_index,
+                                                 weighted_mean_scalars)
 from gridmm_tpu_torch.train.recollection import pad_to_steps
 from gridmm_tpu_torch.train.step import (StepInputs, TrainState,
                                          TrajectoryBatch, batch_to_device,
@@ -37,10 +48,6 @@ from gridmm_tpu_torch.train.step import (StepInputs, TrainState,
 from gridmm_tpu_torch.utils.checkpoint import (AsyncSaver,
                                                restore_checkpoint)
 from gridmm_tpu_torch.utils.logging import MetricLogger
-
-PARALLEL_MISSING = ("the parallel layer (gridmm_tpu/parallel/mesh.py) is not "
-                    "ported to the PyTorch package yet")
-
 
 def derive_batches_per_epoch(env: ContinuousEnv, num_envs: int) -> int:
     """batches_per_epoch = ceil(dataset_length / batch_size), so one epoch
@@ -74,9 +81,6 @@ class CETrainer:
     def __init__(self, cfg: GridMMConfig, agent: CEAgent,
                  schedule_ratio: float = 0.5,
                  epochs_per_ratio: int = 1, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(f"CETrainer(mesh=...): "
-                                      f"{PARALLEL_MISSING}")
         # CE acts AND trains on fused = global+local over [stop]+candidates
         # (ss_trainer_GridMap.py:269-330); the loss accumulates over the
         # whole episode and updates once, like the reference ss_trainer.
@@ -88,14 +92,24 @@ class CETrainer:
         self.agent = agent
         self.schedule_ratio = schedule_ratio
         self.epochs_per_ratio = epochs_per_ratio
+        self.mesh = mesh
+        # the navigator only: the towers have no TP rules and no gradient
+        self.sharded = (ShardedParams(agent.navigator, mesh)
+                        if mesh is not None else None)
         self.state = TrainState(agent.navigator,
-                                make_optimizer(self.cfg, agent.navigator))
+                                make_optimizer(self.cfg, agent.navigator),
+                                sharded=self.sharded)
         self._train_step = make_train_step(self.cfg)
         self._epoch = 0
         self._saver: Optional[AsyncSaver] = None
 
     def ss_ratio(self, epoch: int) -> float:
         return self.schedule_ratio ** (epoch // self.epochs_per_ratio + 1)
+
+    def _view(self):
+        """The navigator's parameters as the rollouts compute with them."""
+        return (self.sharded.compute_params() if self.sharded is not None
+                else contextlib.nullcontext())
 
     def update(self, batch: TrajectoryBatch, seed: int = 0,
                dropout: bool = True) -> Dict[str, torch.Tensor]:
@@ -121,10 +135,18 @@ class CETrainer:
         """
         rng = np.random.default_rng(seed + epoch)
         ratio = self.ss_ratio(epoch)
+        if self.mesh is not None:
+            dp = mesh_shape(self.mesh)[0]
+            if env.num_envs % dp:
+                raise ValueError(f"num_envs {env.num_envs} not divisible by "
+                                 f"the data-axis size {dp}")
         losses = []
         for bi in range(batches):
-            with self.agent.inference():
+            with self._view(), self.agent.inference():
                 batch = self.record_batch(env, max_steps, rng, ratio)
+            if self.mesh is not None:
+                batch = shard_trajectory_batch(batch, data_rank(self.mesh),
+                                               dp)
             # outside inference mode: the loss saves its inputs for the
             # backward, so the recorded CLIP tokens (inference tensors) are
             # copied
@@ -232,8 +254,9 @@ class CETrainer:
                     for i, ob in enumerate(obs):
                         frames.setdefault(i, []).append(
                             np.asarray(ob.rgb[0], np.uint8))
-            ms = self.agent.rollout(env, max_steps=max_steps,
-                                    feedback="argmax", on_step=hook)
+            with self._view():
+                ms = self.agent.rollout(env, max_steps=max_steps,
+                                        feedback="argmax", on_step=hook)
             obs = env.observations()
             fresh = 0
             for i, m in enumerate(ms):
@@ -269,16 +292,21 @@ class CETrainer:
                for k in keys}
         if results_dir:
             os.makedirs(results_dir, exist_ok=True)
-            rank, world = 0, 1
+            rank, world = process_index(), process_count()
             with open(os.path.join(
                     results_dir,
                     f"stats_ep_ckpt_{checkpoint_index}_{split}_r{rank}_"
                     f"w{world}.json"), "w") as f:
                 json.dump(ep_stats, f, indent=4)
-            with open(os.path.join(
-                    results_dir,
-                    f"stats_ckpt_{checkpoint_index}_{split}.json"), "w") as f:
-                json.dump(avg, f, indent=4)
+            # the episode-count-weighted mean over the ranks: the metrics of
+            # all ranks' episodes together
+            avg = weighted_mean_scalars(avg, float(len(all_m)))
+            if rank == 0:
+                with open(os.path.join(
+                        results_dir,
+                        f"stats_ckpt_{checkpoint_index}_{split}.json"),
+                        "w") as f:
+                    json.dump(avg, f, indent=4)
         return avg
 
     # ----------------------------------------------------------- checkpoints
@@ -287,11 +315,18 @@ class CETrainer:
         optimizer state and epoch (ss_trainer_GridMap.py:65-75). The write
         overlaps the next epoch and lands by an atomic rename, so a polling
         evaluator never reads a half-written file."""
+        sp = self.sharded
+        # under a mesh every rank gathers (a collective), rank 0 writes
+        params = (sp.full_state_dict() if sp is not None
+                  else self.agent.navigator.state_dict())
+        opt = (sp.full_optimizer_state(self.state.optimizer) if sp is not None
+               else self.state.optimizer.state_dict())
+        if process_index() != 0:
+            return
         if self._saver is None:
             self._saver = AsyncSaver()
         self._saver.save(os.path.abspath(path), {
-            "params": self.agent.navigator.state_dict(),
-            "opt_state": self.state.optimizer.state_dict(),
+            "params": params, "opt_state": opt,
             "epoch": self._epoch, "step": self.state.step})
 
     def flush(self) -> None:
@@ -311,8 +346,14 @@ class CETrainer:
         base_il_trainer.py:147-150)."""
         self.flush()
         state = restore_checkpoint(os.path.abspath(path))
-        self.agent.navigator.load_state_dict(state["params"], strict=True)
-        self.state.optimizer.load_state_dict(state["opt_state"])
+        if self.sharded is not None:
+            self.sharded.load_state_dict(state["params"])
+            self.sharded.load_optimizer_state(self.state.optimizer,
+                                              state["opt_state"])
+        else:
+            self.agent.navigator.load_state_dict(state["params"],
+                                                 strict=True)
+            self.state.optimizer.load_state_dict(state["opt_state"])
         self.state.step = int(state.get("step", 0))
         self._epoch = int(state["epoch"])
         return self._epoch
@@ -340,7 +381,9 @@ class CETrainer:
         rollouts = 0
         while batches == 0 or rollouts < batches:
             rollouts += 1
-            self.agent.rollout(env, max_steps=max_steps, feedback="argmax")
+            with self._view():
+                self.agent.rollout(env, max_steps=max_steps,
+                                   feedback="argmax")
             obs = env.observations()
             infos_all = getattr(env, "path_infos", None)
             fresh = 0

@@ -21,6 +21,10 @@ beside them as `navigator.pt` (a state dict; the manifest names it under
   # the same for a released fine-tune checkpoint (grid_map.pt)
   python -m gridmm_tpu_torch.cli.export_serving --config r2r --batch 4 \\
       --navigator_ckpt ckpts/grid_map.pt --out_dir runs/bundle_released
+
+  # one pair of programs per card of a 4-card host, 2 x 2 (data, model)
+  torchrun --nproc_per_node 4 -m gridmm_tpu_torch.cli.export_serving \\
+      --config r2r --batch 8 --mesh auto --mp_size 2 --out_dir runs/b4
 """
 
 from __future__ import annotations
@@ -51,43 +55,53 @@ def parse_args(argv=None):
                    help="checkpoint file written by main_nav")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--int8", action="store_true",
-                   help="int8 trunk matmuls (not ported yet)")
+                   help="int8 trunk matmuls (ModelConfig.int8_matmuls): the "
+                        "programs quantize the f32 weights they are given "
+                        "at every call")
     p.add_argument("--navigator_ckpt", default=None,
                    help="released torch checkpoint (grid_map/finetune "
                         "format); supersedes --resume")
     p.add_argument("--mesh", choices=["auto"], default=None,
-                   help="multi-device export (not ported yet)")
+                   help="export over a (data, model) mesh of the launched "
+                        "world: one pair of programs per rank over its "
+                        "shards (run under torchrun, one process a card)")
     p.add_argument("--mp_size", type=int, default=1,
-                   help="model-axis size of --mesh auto (not ported yet)")
+                   help="model-axis size of --mesh auto")
     p.add_argument("--fsdp", action="store_true",
-                   help="shard parameters over the data axis (not ported "
-                        "yet)")
+                   help="with --mesh auto: the programs take parameters "
+                        "sharded over the data axis too and all-gather "
+                        "them")
     return p.parse_args(argv)
-
-
-def _check_ported(args) -> None:
-    waits = (
-        (args.int8, "--int8", "ops/quant.py (ROADMAP Queue 1, int8 matmuls)"),
-        (args.mesh, "--mesh", "parallel/mesh.py (ROADMAP Queue 1, parallel "
-         "layer)"),
-        (args.mp_size != 1, "--mp_size", "parallel/mesh.py (ROADMAP Queue 1, "
-         "parallel layer)"),
-        (args.fsdp, "--fsdp", "parallel/mesh.py (ROADMAP Queue 1, parallel "
-         "layer)"))
-    for given, flag, what in waits:
-        if given:
-            raise NotImplementedError(f"{flag} waits for {what}, which is "
-                                      "not ported yet")
 
 
 def main(argv=None):
     args = parse_args(argv)
-    _check_ported(args)
+    if args.mesh and args.int8:
+        # one absmax over the whole batch sets an int8 activation scale; a
+        # rank's program would take it over its share of the batch
+        raise ValueError("--int8 bundles are exported on one device; drop "
+                         "--mesh")
+    import torch.distributed as dist
 
+    from gridmm_tpu_torch.parallel.mesh import init_world
+
+    created = init_world(args.device) if args.mesh else False
+    try:
+        return _main(args)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _main(args):
     from gridmm_tpu_torch import config as C
     from gridmm_tpu_torch.models.navigator import init_navigator
-    from gridmm_tpu_torch.utils.export import (export_navigator_serving,
-                                               save_serving_bundle)
+    from gridmm_tpu_torch.parallel.mesh import local_device, make_mesh
+    from gridmm_tpu_torch.parallel.multihost import (process_count,
+                                                     process_index)
+    from gridmm_tpu_torch.utils.export import (
+        export_navigator_serving, export_navigator_serving_sharded,
+        save_serving_bundle)
 
     cfg = C.tiny_config() if args.tiny else {
         "r2r": C.r2r_config, "reverie": C.reverie_config,
@@ -99,8 +113,12 @@ def main(argv=None):
             shapes=dataclasses.replace(
                 cfg.shapes,
                 max_points=args.max_action_len * cfg.grid.points_per_step))
+    if args.int8:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, int8_matmuls=True))
 
-    model = init_navigator(cfg.model, seed=args.seed, device=args.device)
+    device = local_device(args.device)
+    model = init_navigator(cfg.model, seed=args.seed, device=device)
     extra = {}
     if args.navigator_ckpt:
         from gridmm_tpu_torch.cli.parity_eval import \
@@ -113,19 +131,31 @@ def main(argv=None):
         from gridmm_tpu_torch.utils.checkpoint import restore_checkpoint
 
         restore_checkpoint(os.path.abspath(args.resume), model)
-    exports = export_navigator_serving(model, cfg, model.state_dict(),
-                                       batch=args.batch, device=args.device)
+    rank = None
+    if args.mesh:
+        # every rank holds the same full weights (seed or checkpoint) and
+        # exports its own programs
+        mesh = make_mesh(C.MeshConfig(mp_size=args.mp_size), device.type)
+        exports, extra["mesh"] = export_navigator_serving_sharded(
+            model, cfg, model.state_dict(), mesh, batch=args.batch,
+            fsdp=args.fsdp, device=device)
+        rank = process_index()
+    else:
+        exports = export_navigator_serving(model, cfg, model.state_dict(),
+                                           batch=args.batch, device=device)
     manifest = save_serving_bundle(
         exports, args.out_dir, cfg=cfg,
         extra_manifest={"batch": args.batch,
                         "config": "tiny" if args.tiny else args.config,
-                        "int8": False, **extra})
-    if args.navigator_ckpt:
-        from gridmm_tpu_torch.utils.checkpoint import save_checkpoint
+                        "int8": args.int8, **extra},
+        rank=rank, world=process_count() if args.mesh else 1)
+    if rank in (None, 0):
+        if args.navigator_ckpt:
+            from gridmm_tpu_torch.utils.checkpoint import save_checkpoint
 
-        save_checkpoint(os.path.join(args.out_dir, WEIGHTS_FILE),
-                        model.state_dict())
-    print(json.dumps(manifest))
+            save_checkpoint(os.path.join(args.out_dir, WEIGHTS_FILE),
+                            model.state_dict())
+        print(json.dumps(manifest))
     return manifest
 
 

@@ -12,8 +12,16 @@ gridmm_tpu/cli/main_nav.py, the equivalent of map_nav_src/main_nav.py).
   python -m gridmm_tpu_torch.cli.main_nav --world r2r --root_dir /data \
       --feature_backend gmmstore --iters 20000 --log_every 500 --eval
 
-One process trains on one device; the multi-process and mesh options wait
-for the parallel layer (see the error they raise).
+  # data parallel over the 8 cards of a host (torchrun starts one process
+  # a card); --mp_size 2 adds tensor parallelism inside pairs of cards
+  torchrun --nproc_per_node 8 -m gridmm_tpu_torch.cli.main_nav \
+      --world synthetic --mesh auto --batch_size 16 --iters 6
+
+--batch_size is the global batch: under --mesh auto each data rank rolls
+out batch_size / dp episodes of its own (seed + its data rank) and
+evaluates its contiguous shard of the val split; --multihost joins the
+torchrun/env:// world without a mesh (each rank trains its own replica, as
+the JAX CLI does per host).
 """
 
 from __future__ import annotations
@@ -22,9 +30,7 @@ import argparse
 import dataclasses
 import json
 import os
-from typing import Dict, List
-
-import numpy as np
+from gridmm_tpu_torch.parallel.multihost import allocate_episodes_by_scene
 
 WORLDS = ["synthetic", "r2r", "reverie", "soon", "rxr"]
 
@@ -65,14 +71,17 @@ def parse_args(argv=None):
                    help="sum teacher+sample losses per iteration "
                         "(reference DAgger gradient shape)")
     p.add_argument("--scene_shard", action="store_true",
-                   help="partition the train split by scene across ranks "
-                        "(not ported yet: one process)")
+                   help="partition the train split by scene across the "
+                        "data ranks (the CE trainer's allocation) instead "
+                        "of the full split on every rank")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process training (not ported yet)")
+                   help="join the world torchrun / env:// describes "
+                        "(init_process_group from the environment)")
     p.add_argument("--mesh", choices=["off", "auto"], default="off",
-                   help="auto = shard the replay update over all visible "
-                        "devices (not ported yet)")
-    p.add_argument("--mp_size", type=int, default=1)
+                   help="auto = shard the replay update over a (data, "
+                        "model) mesh of the launched world")
+    p.add_argument("--mp_size", type=int, default=1,
+                   help="model-parallel axis size within --mesh auto")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 activations/matmuls (params, logits, loss "
                         "and gmap accumulators stay f32)")
@@ -89,19 +98,25 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_synthetic(args, cfg):
+def build_synthetic(args, cfg, rank: int = 0, n: int = 1,
+                    batch_size: int = 0):
+    """(train_env, val_env) of data rank `rank` of `n`: the train env with
+    seed + rank, the val env over the rank's contiguous shard."""
     from gridmm_tpu_torch.env.discrete import (DiscreteNavEnv,
                                                synthetic_episodes)
     from gridmm_tpu_torch.env.world import SyntheticWorld
 
+    bs = batch_size or args.batch_size
     world = SyntheticWorld(num_scans=2, nodes_per_scan=10, seed=args.seed)
     train_eps = synthetic_episodes(world, num=24, seed=args.seed)
     val_eps = synthetic_episodes(world, num=12, seed=args.seed + 1)
+    if n > 1 and args.scene_shard:
+        train_eps = allocate_episodes_by_scene(train_eps, n)[rank]
     train_env = DiscreteNavEnv(world, world.graphs, train_eps,
-                               batch_size=args.batch_size, seed=args.seed)
+                               batch_size=bs, seed=args.seed + rank)
     val_env = DiscreteNavEnv(world, world.graphs, val_eps,
-                             batch_size=args.batch_size, seed=args.seed,
-                             name="val")
+                             batch_size=bs, seed=args.seed, name="val",
+                             sel_data_idxs=(rank, n) if n > 1 else None)
     return train_env, val_env
 
 
@@ -128,27 +143,10 @@ def _hdf5_view_bank(path: str, image_feat_size: int):
     return lookup
 
 
-def allocate_episodes_by_scene(episodes: List[dict], num_workers: int,
-                               scene_key: str = "scan") -> List[List[dict]]:
-    """Scene-load-balanced episode allocation across workers (a copy of
-    gridmm_tpu/parallel/multihost.py's, VLN_CE ss_trainer_GridMap.py:77-139):
-    whole scenes go greedily to the least-loaded worker."""
-    by_scene: Dict[str, List[dict]] = {}
-    for ep in episodes:
-        by_scene.setdefault(str(ep[scene_key]), []).append(ep)
-    buckets: List[List[dict]] = [[] for _ in range(num_workers)]
-    loads = [0] * num_workers
-    for scene, eps in sorted(by_scene.items(), key=lambda kv: -len(kv[1])):
-        w = int(np.argmin(loads))
-        buckets[w].extend(eps)
-        loads[w] += len(eps)
-    return buckets
-
-
-def build_real(args, cfg):
+def build_real(args, cfg, rank: int = 0, n: int = 1, batch_size: int = 0):
     """(train_env, val_env, aug_env) over the reference layout
     ROOT/{DATASET}/{features,connectivity,annotations} (twin of
-    gridmm_tpu/cli/main_nav.py build_real) for one process: rank 0 of 1."""
+    gridmm_tpu/cli/main_nav.py build_real) for data rank `rank` of `n`."""
     from gridmm_tpu_torch.data.datasets import construct_instrs
     from gridmm_tpu_torch.env.discrete import DiscreteNavEnv
     from gridmm_tpu_torch.env.nav_graph import load_nav_graphs
@@ -215,44 +213,40 @@ def build_real(args, cfg):
         train_world = AugmentedViewWorld(
             world, _hdf5_view_bank(args.aug_views, cfg.model.image_feat_size),
             seed=args.seed)
+    # several ranks: the val env takes the reference's contiguous shard
+    # via sel_data_idxs (main_nav.py:79 / r2r/env.py:427-435); the
+    # reference's discrete DDP keeps the FULL train split on every rank
+    # with a decorrelated shuffle (main_nav.py:54-58: seed=args.seed+rank),
+    # and --scene_shard opts into the scene-balanced partition
+    bs = batch_size or args.batch_size
+    val_shard = (rank, n) if n > 1 else None
+    if n > 1 and args.scene_shard:
+        train_data = allocate_episodes_by_scene(train_data, n)[rank]
     # augmented-instruction env, interleaved with GT (main_nav.py:35-47)
     aug_data = None
     if args.aug:
         aug_data = construct_instrs(anno, ds, [args.aug], tok,
                                     cfg.shapes.max_txt_len)
+        if n > 1 and args.scene_shard:
+            aug_data = allocate_episodes_by_scene(aug_data, n)[rank]
     scans = {x["scan"] for x in train_data} | {x["scan"] for x in val_data}
     if aug_data:
         scans |= {x["scan"] for x in aug_data}
     graphs = load_nav_graphs(conn, scans)
     train_env = DiscreteNavEnv(train_world, graphs, train_data,
-                               batch_size=args.batch_size, seed=args.seed)
-    val_env = DiscreteNavEnv(world, graphs, val_data,
-                             batch_size=args.batch_size, seed=args.seed,
-                             name="val_unseen")
+                               batch_size=bs, seed=args.seed + rank)
+    val_env = DiscreteNavEnv(world, graphs, val_data, batch_size=bs,
+                             seed=args.seed, name="val_unseen",
+                             sel_data_idxs=val_shard)
     aug_env = None
     if aug_data:
         aug_env = DiscreteNavEnv(train_world, graphs, aug_data,
-                                 batch_size=args.batch_size, seed=args.seed,
+                                 batch_size=bs, seed=args.seed + rank,
                                  name="aug")
     return train_env, val_env, aug_env
 
 
-def _check_ported(args) -> None:
-    if args.mesh != "off":
-        raise NotImplementedError(
-            "--mesh auto waits for the parallel layer (ROADMAP Queue 1, "
-            "parallel layer: parallel/mesh.py)")
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost waits for the parallel layer (ROADMAP Queue 1, "
-            "parallel layer: parallel/multihost.py)")
-    # options of the multi-process builder and of the mesh: refuse them
-    # rather than run without what was asked for
-    for flag, default in (("scene_shard", False), ("mp_size", 1)):
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag} is read only by the parallel layer, which is not "
-                "ported yet (ROADMAP Queue 1, parallel layer)")
+def _check_args(args) -> None:
     if args.world != "synthetic" and not args.root_dir:
         raise ValueError(f"--world {args.world} needs --root_dir")
     if args.detailed_output and not args.submit:
@@ -262,9 +256,30 @@ def _check_ported(args) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
-    _check_ported(args)
-    from gridmm_tpu_torch.config import (r2r_config, reverie_config,
-                                         rxr_config, soon_config, tiny_config)
+    _check_args(args)
+    import torch.distributed as dist
+
+    from gridmm_tpu_torch.parallel.mesh import init_world
+
+    created = False
+    if args.multihost or args.mesh == "auto":
+        created = init_world(args.device, args.multihost)
+    try:
+        return _main(args)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _main(args):
+    from gridmm_tpu_torch.config import (MeshConfig, r2r_config,
+                                         reverie_config, rxr_config,
+                                         soon_config, tiny_config)
+    from gridmm_tpu_torch.parallel.mesh import (data_rank, local_device,
+                                                make_mesh)
+    from gridmm_tpu_torch.parallel.multihost import (merge_prediction_lists,
+                                                     process_count,
+                                                     process_index)
     from gridmm_tpu_torch.models.navigator import init_navigator
     from gridmm_tpu_torch.train.agent import NavAgent
     from gridmm_tpu_torch.train.loop import train_navigator
@@ -289,13 +304,32 @@ def main(argv=None):
             cfg, model=dataclasses.replace(cfg.model,
                                            compute_dtype="bfloat16"))
 
+    device = local_device(args.device)
+    # the data rank and count the envs are sharded by, and each rank's
+    # share of the batch
+    rank, n, local_batch = process_index(), process_count(), args.batch_size
+    mesh = None
+    if args.mesh == "auto":
+        world = process_count()
+        if world % args.mp_size:
+            raise ValueError(f"{world} devices not divisible by --mp_size "
+                             f"{args.mp_size}")
+        mesh = make_mesh(MeshConfig(mp_size=args.mp_size), device.type)
+        n = world // args.mp_size
+        if cfg.train.batch_size % n:
+            raise ValueError(f"--batch_size {cfg.train.batch_size} not "
+                             f"divisible by data-parallel size {n}")
+        rank, local_batch = data_rank(mesh), cfg.train.batch_size // n
+        print(f"mesh: data={n} model={args.mp_size}")
+
     if args.world == "synthetic":
-        train_env, val_env = build_synthetic(args, cfg)
+        train_env, val_env = build_synthetic(args, cfg, rank, n, local_batch)
         aug_env = None
     else:
-        train_env, val_env, aug_env = build_real(args, cfg)
+        train_env, val_env, aug_env = build_real(args, cfg, rank, n,
+                                                 local_batch)
 
-    model = init_navigator(cfg.model, seed=args.seed, device=args.device)
+    model = init_navigator(cfg.model, seed=args.seed, device=device)
     if args.resume:
         from gridmm_tpu_torch.utils.checkpoint import restore_checkpoint
 
@@ -307,28 +341,35 @@ def main(argv=None):
         if (args.eval or args.submit) else None
     aug_agent = NavAgent(model, cfg, aug_env) if aug_env else None
 
-    logger = MetricLogger(os.path.join(args.output_dir, "logs"))
+    # rank 0 writes the event log
+    logger = MetricLogger(os.path.join(args.output_dir, "logs")
+                          if process_index() == 0 else None)
     try:
         result = train_navigator(
             cfg, model, agent, val_agent if args.eval else None,
             aug_agent=aug_agent, iters=args.iters, log_every=args.log_every,
             eval_batches=args.eval_batches or None,  # 0 -> full split
             ckpt_dir=os.path.join(args.output_dir, "ckpts"), logger=logger,
-            seed=args.seed)
+            seed=args.seed, mesh=mesh)
     finally:
         logger.close()
     if args.submit and val_agent is not None:
         # final full-split predictions in leaderboard format
-        # (main_nav.py:246-260 valid() submit JSON)
+        # (main_nav.py:246-260 valid() submit JSON); the ranks' shards
+        # merged like the reference's all_gather + merge_dist_results
         _, preds = val_agent.evaluate(None,
                                       detailed_output=args.detailed_output)
-        val_agent.write_submission(
-            preds, args.submit, objects=cfg.model.obj_feat_size > 0,
-            fmt=args.world if args.world in ("soon", "reverie") else "auto")
-        print(f"wrote {len(preds)} predictions -> {args.submit}")
-    print(json.dumps({
-        "best_spl": result.best_spl, "best_iter": result.best_iter,
-        **{f"final_{k}": v for k, v in result.final_metrics.items()}}))
+        preds = merge_prediction_lists(preds)
+        if process_index() == 0:
+            val_agent.write_submission(
+                preds, args.submit, objects=cfg.model.obj_feat_size > 0,
+                fmt=args.world if args.world in ("soon", "reverie")
+                else "auto")
+            print(f"wrote {len(preds)} predictions -> {args.submit}")
+    if process_index() == 0:
+        print(json.dumps({
+            "best_spl": result.best_spl, "best_iter": result.best_iter,
+            **{f"final_{k}": v for k, v in result.final_metrics.items()}}))
     return result
 
 

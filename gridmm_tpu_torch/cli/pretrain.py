@@ -16,13 +16,20 @@ Two data sources:
       --view_ft_file fts/views.hdf5 --depth_file fts/depth.hdf5 \\
       --grid_ft_file fts/clip_p32.hdf5 --viewpoint_info fts/vp_info.json
 
-One process trains on one device; --mesh and --mp_size wait for the
-parallel layer (see the error they raise).
+  # data (x tensor) parallel over the launched world, one process a card
+  torchrun --nproc_per_node 8 -m gridmm_tpu_torch.cli.pretrain \
+      --mesh auto --mp_size 2 --batch_size 16
+
+Under --mesh auto every rank draws the same global batch and trains on its
+data rank's slice of it (an accumulation window's microbatches each
+split), the losses are the whole batch's, and rank 0 writes full
+checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -58,11 +65,10 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device of the model and the updates")
     p.add_argument("--mesh", choices=["off", "auto"], default="off",
-                   help="auto = shard the update over all visible devices "
-                        "(not ported yet)")
+                   help="auto = shard the update over a (data, model) mesh "
+                        "of the launched world")
     p.add_argument("--mp_size", type=int, default=1,
-                   help="model-parallel axis size within --mesh auto (not "
-                        "ported yet)")
+                   help="model-parallel axis size within --mesh auto")
     p.add_argument("--output_dir", default="runs/pretrain")
     p.add_argument("--preset", default=None,
                    choices=["tiny", "r2r", "reverie", "soon", "rxr"],
@@ -119,17 +125,6 @@ def parse_args(argv=None):
         p.error("--init_pretrained needs --init_weights (a local torch "
                 "state-dict file)")
     return args
-
-
-def _check_ported(args) -> None:
-    if args.mesh != "off":
-        raise NotImplementedError(
-            "--mesh auto waits for the parallel layer (ROADMAP Queue 1, "
-            "parallel layer: parallel/mesh.py)")
-    if args.mp_size != 1:
-        raise NotImplementedError(
-            "--mp_size is read only by the parallel layer, which is not "
-            "ported yet (ROADMAP Queue 1, parallel layer)")
 
 
 def _load_torch_state(path: str):
@@ -421,8 +416,26 @@ def validate(model, batches_by_task):
 
 def main(argv=None):
     args = parse_args(argv)
-    _check_ported(args)
+    import torch.distributed as dist
+
+    from gridmm_tpu_torch.parallel.mesh import init_world
+
+    created = init_world(args.device) if args.mesh == "auto" else False
+    try:
+        return _main(args)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _main(args):
     import torch
+
+    from gridmm_tpu_torch.config import MeshConfig
+    from gridmm_tpu_torch.parallel.mesh import (ShardedParams, data_rank,
+                                                local_device, make_mesh,
+                                                mesh_shape, shard_batch)
+    from gridmm_tpu_torch.parallel.multihost import process_index
 
     from gridmm_tpu_torch.models.navigator import GridMMNavigator
     from gridmm_tpu_torch.train.optimizers import (build_optimizer,
@@ -444,7 +457,16 @@ def main(argv=None):
     if len(mix) != len(tasks):
         raise ValueError(f"--mix_ratio has {len(mix)} entries for "
                          f"{len(tasks)} tasks")
-    device = torch.device(args.device)
+    device = local_device(args.device)
+    mesh = None
+    if args.mesh == "auto":
+        mesh = make_mesh(MeshConfig(mp_size=args.mp_size), device.type)
+        dp = mesh_shape(mesh)[0]
+        if args.batch_size % dp:
+            raise SystemExit(
+                f"--batch_size {args.batch_size} not divisible by the "
+                f"data-parallel axis ({dp})")
+        print(f"mesh: data={dp} model={args.mp_size}")
 
     if args.traj_files:
         train_ds, val_ds = build_dataset(args, cfg)
@@ -479,6 +501,12 @@ def main(argv=None):
     model = init_pretrain_params(cfg.model, seed=args.seed, device=device)
     _apply_init_weights(args, cfg, model)
     model.train()
+    ckpt = (restore_checkpoint(os.path.abspath(args.resume))
+            if args.resume else None)
+    if ckpt is not None:
+        model.load_state_dict(ckpt["model"], strict=True)
+    # every rank holds the same full weights here; each keeps its slices
+    sharded = ShardedParams(model, mesh) if mesh is not None else None
     # warmup + linear decay, the reference pretraining schedule
     # (pretrain_src/optim/sched.py warmup_linear)
     sched = warmup_linear_schedule(
@@ -490,12 +518,14 @@ def main(argv=None):
     tcfg = dataclasses.replace(cfg.train, betas=cfg.train.pretrain_betas,
                                adam_eps=cfg.train.pretrain_adam_eps)
     state = create_train_state(cfg, model,
-                               build_optimizer("adamw", tcfg, model, sched))
+                               build_optimizer("adamw", tcfg, model, sched),
+                               sharded)
 
-    if args.resume:
-        ckpt = restore_checkpoint(os.path.abspath(args.resume))
-        model.load_state_dict(ckpt["model"], strict=True)
-        state.optimizer.load_state_dict(ckpt["optimizer"])
+    if ckpt is not None:
+        if sharded is not None:
+            sharded.load_optimizer_state(state.optimizer, ckpt["optimizer"])
+        else:
+            state.optimizer.load_state_dict(ckpt["optimizer"])
         state.step = int(ckpt["step"])
         print(json.dumps({"resumed_step": state.step}))
 
@@ -508,16 +538,21 @@ def main(argv=None):
     saver = AsyncSaver()
 
     def _save(tag: str, nav: bool = True) -> None:
+        # under a mesh every rank gathers (a collective), rank 0 writes
+        if sharded is not None:
+            sd = sharded.full_state_dict()
+            opt = sharded.full_optimizer_state(state.optimizer)
+        else:
+            sd, opt = model.state_dict(), state.optimizer.state_dict()
+        if process_index() != 0:
+            return
         saver.save(os.path.join(ckpt_root, tag),
-                   {"model": model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(),
-                    "step": state.step})
+                   {"model": sd, "optimizer": opt, "step": state.step})
         if nav:
             # fine-tune handoff: main_nav --resume <dir>/navigator_latest;
             # the pretrain-only language branch and heads dropped
             saver.save(os.path.join(ckpt_root, "navigator_latest"),
-                       pretrain_params_to_navigator(model.state_dict(),
-                                                    nav_template))
+                       pretrain_params_to_navigator(sd, nav_template))
 
     accum = max(args.accum_steps, 1)
     if accum > 1:
@@ -526,7 +561,13 @@ def main(argv=None):
         steps = {t: make_pretrain_step(cfg, t) for t in tasks}
     mux = iter(TaskMultiplexer(tasks, mix, seed=args.seed,
                                accum_steps=accum))
-    logger = MetricLogger(args.output_dir)
+    logger = MetricLogger(args.output_dir if process_index() == 0 else None)
+
+    def local(batch):
+        """The data rank's slice of a global batch."""
+        if sharded is None:
+            return batch
+        return shard_batch(batch, data_rank(mesh), sharded.dp)
 
     # --steps counts OPTIMIZER steps; each consumes `accum` microbatches of
     # the same (held) task
@@ -543,9 +584,9 @@ def main(argv=None):
                 raise RuntimeError("task changed inside an accumulation "
                                    "window")
             if accum == 1:
-                metrics = steps[task](state, batch, seed=args.seed + 1)
+                metrics = steps[task](state, local(batch), seed=args.seed + 1)
             else:
-                metrics = steps[task](state, [b for _, b in window],
+                metrics = steps[task](state, [local(b) for _, b in window],
                                       seed=args.seed + 1)
             window = []
             it += 1
@@ -557,14 +598,20 @@ def main(argv=None):
                 _save(f"step_{state.step}", nav=False)
                 _save("latest")
             if it % args.valid_every == 0 or it == args.steps:
-                acc = validate(model, val_by_task)
+                # every rank validates the whole batches (the same numbers)
+                with (sharded.compute_params() if sharded is not None
+                      else contextlib.nullcontext()):
+                    acc = validate(model, val_by_task)
                 logger.log(it, acc, prefix="valid/")
-                print(json.dumps({"step": it, **acc}))
+                if process_index() == 0:
+                    print(json.dumps({"step": it, **acc}))
     except BaseException:
         # interrupted: park a resumable checkpoint before propagating, but
         # only if this run stepped (a crash before the first update must not
-        # overwrite a previous run's 'latest' with fresh init)
-        if it > 0:
+        # overwrite a previous run's 'latest' with fresh init); under a mesh
+        # the other ranks may not reach the gather, so the last cadence
+        # save stays the resume point
+        if it > 0 and sharded is None:
             try:
                 _save("latest")
                 saver.close()  # durable before exiting
@@ -576,6 +623,10 @@ def main(argv=None):
         logger.close()
     _save("latest")
     saver.close()
+    if sharded is not None:
+        # the returned module is one process's again
+        sharded.unshard()
+        state.sharded = None
     return state
 
 

@@ -15,9 +15,14 @@ arena runs anywhere.
 
   python -m gridmm_tpu_torch.cli.run_ce --run-type eval --poll_ckpt_dir D
 
-Prints one JSON line per epoch and one with the eval metrics. One process
-runs on one device: --mesh auto and --mp_size wait for the parallel layer
-and raise.
+  # over the launched world (one process a card), TP in pairs of cards
+  torchrun --nproc_per_node 8 -m gridmm_tpu_torch.cli.run_ce --full \
+      --mesh auto --mp_size 2 --num_envs 8
+
+Prints one JSON line per epoch and one with the eval metrics. Under --mesh
+auto each rank rolls out the whole env batch and updates on its data
+slice (--num_envs must divide by the data-axis size); rank 0 writes the
+checkpoints and every rank its own eval stats file.
 """
 
 from __future__ import annotations
@@ -130,11 +135,12 @@ def parse_args(argv=None):
                         "(params + optimizer + epoch) and continue — "
                         "IL.is_requeue semantics (base_il_trainer.py:147-150)")
     p.add_argument("--mesh", choices=["off", "auto"], default="off",
-                   help="train over a device mesh (the reference's DDP CE "
-                        "trainer); waits for the parallel layer and raises")
+                   help="train over a (data, model) mesh of the launched "
+                        "world: the reference's DDP CE trainer "
+                        "(base_il_trainer _init_distributed); --num_envs "
+                        "must be divisible by the data-axis size")
     p.add_argument("--mp_size", type=int, default=1,
-                   help="model-parallel axis size within --mesh auto "
-                        "(raises unless 1)")
+                   help="model-parallel axis size within --mesh auto")
     # released-weights set (base_il_trainer.py:80-117 + vlnbert_init.py:11-65)
     p.add_argument("--waypoint_ckpt", default=None)
     p.add_argument("--navigator_ckpt", default=None,
@@ -151,21 +157,34 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh != "off" or args.mp_size != 1:
-        raise NotImplementedError(
-            "--mesh auto / --mp_size wait for the parallel layer "
-            "(gridmm_tpu/parallel/mesh.py), which is not ported to the "
-            "PyTorch package yet (ROADMAP Queue 1)")
+    import torch.distributed as dist
+
+    from gridmm_tpu_torch.parallel.mesh import init_world
+
+    created = init_world(args.device) if args.mesh == "auto" else False
+    try:
+        return _main(args)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _main(args):
     from gridmm_tpu_torch.ce.env import SyntheticContinuousEnv
     from gridmm_tpu_torch.ce.factory import build_ce_agent
     from gridmm_tpu_torch.ce.trainer import CETrainer
+    from gridmm_tpu_torch.config import MeshConfig
+    from gridmm_tpu_torch.parallel.mesh import local_device, make_mesh
+    from gridmm_tpu_torch.parallel.multihost import (process_count,
+                                                     process_index)
     from gridmm_tpu_torch.utils.logging import MetricLogger
 
+    device = local_device(args.device)
     cfg, agent = build_ce_agent(
         tiny=not args.full, view_tower=args.view_tower,
         waypoint_rgb=not args.depth_only_waypoint,
         img=224 if args.full else 56, seed=args.seed, preset=args.task,
-        device=args.device)
+        device=device)
     ckpts = dict(waypoint_ckpt=args.waypoint_ckpt,
                  navigator_ckpt=args.navigator_ckpt,
                  clip_ckpt=args.clip_ckpt, vit_ckpt=args.vit_ckpt,
@@ -183,13 +202,14 @@ def main(argv=None):
         episodes_allowed = None
         if args.data_path and args.run_type == "train":
             # scene-balanced train allocation (ss_trainer_GridMap.py:77-139)
-            # over one process
+            # over the ranks
             from gridmm_tpu_torch.ce.dataset import (
                 allocate_episodes_by_scene, load_vlnce_dataset)
 
             eps, _ = load_vlnce_dataset(args.data_path, args.train_split,
                                         shuffle_seed=None)
-            episodes_allowed = allocate_episodes_by_scene(eps, 1)[0]
+            episodes_allowed = allocate_episodes_by_scene(
+                eps, process_count())[process_index()]
         env = HabitatContinuousEnv(
             args.habitat_config, num_envs=args.num_envs,
             eval_mode=args.run_type in ("eval", "inference"),
@@ -201,10 +221,14 @@ def main(argv=None):
                                      image_size=224 if args.full else 56,
                                      depth_size=256, seed=args.seed,
                                      num_episodes=args.num_episodes or None)
+    mesh = None
+    if args.mesh == "auto":
+        mesh = make_mesh(MeshConfig(mp_size=args.mp_size), device.type)
+        print(f"mesh: data={mesh.size(0)} model={args.mp_size}")
     trainer = CETrainer(
-        cfg, agent, schedule_ratio=args.schedule_ratio,
+        cfg, agent, mesh=mesh, schedule_ratio=args.schedule_ratio,
         epochs_per_ratio=epochs_per_ratio(args.epochs, args.decay_time))
-    logger = MetricLogger(args.output_dir)
+    logger = MetricLogger(args.output_dir if process_index() == 0 else None)
     try:
         return _run(args, trainer, env, logger)
     finally:

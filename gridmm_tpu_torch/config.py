@@ -86,14 +86,9 @@ class ModelConfig:
 
     # knobs with no reference equivalent
     compute_dtype: str = "float32"
-    # serving-only int8 projections/FFN in the transformer trunk (same param
-    # layout). Not ported yet: True raises NotImplementedError.
+    # serving-only int8 projections/FFN in the transformer trunk, same
+    # parameters (models/layers.Int8Dense, ops/quant.py)
     int8_matmuls: bool = False
-
-    def __post_init__(self):
-        if self.int8_matmuls:
-            raise NotImplementedError(
-                "int8_matmuls is not ported to the PyTorch package yet")
 
     @property
     def head_dim(self) -> int:

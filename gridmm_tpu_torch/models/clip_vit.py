@@ -18,7 +18,8 @@ the tower mechanically. Parameters stay f32 and are cast to
 The LayerNorms and the attention dispatch by device (ops/layernorm.py,
 ops/attention.py): on the card they are hand-written kernels, on the CPU
 their plain versions. The projections and the MLP are `F.linear`, as the
-JAX package leaves them to XLA.
+JAX package leaves them to XLA, or int8 products under `int8_matmuls`
+(`MaybeInt8Dense`, ops/quant.py).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gridmm_tpu_torch.models.layers import Dense
+from gridmm_tpu_torch.models.layers import Dense, Int8Dense
 from gridmm_tpu_torch.ops.attention import attention_qkv
 from gridmm_tpu_torch.ops.layernorm import layernorm
 
@@ -47,7 +48,7 @@ class ClipVisionConfig:
     layers: int = 12
     heads: int = 12
     compute_dtype: str = "bfloat16"
-    # serving int8 projections/MLP. Not ported yet: True raises.
+    # serving: int8 products in the projections and the MLP (ops/quant.py)
     int8_matmuls: bool = False
     # plain path only: raw attention scores in f32 (True) or in
     # compute_dtype; the kernels always keep scores in f32 on chip
@@ -57,11 +58,6 @@ class ClipVisionConfig:
     gelu: str = "quick"  # "quick" (CLIP) | "erf" (timm)
     ln_pre: bool = True
     conv_bias: bool = False
-
-    def __post_init__(self):
-        if self.int8_matmuls:
-            raise NotImplementedError(
-                "int8_matmuls is not ported to the PyTorch package yet")
 
     @property
     def grid(self) -> int:
@@ -107,19 +103,29 @@ class ClipLayerNorm(nn.Module):
         return layernorm(x, self.weight, self.bias, eps=1e-5)
 
 
+def MaybeInt8Dense(in_features: int, out_features: int, use_int8: bool,
+                   dtype: torch.dtype) -> Dense:
+    """The JAX package's `MaybeInt8Dense` (clip_vit.py:120-138): the same
+    parameters, with an int8 product when `use_int8` (`Int8Dense`, whose
+    result keeps the input's dtype, so a bf16 tower stays bf16) and a
+    product in `dtype` otherwise (`Dense`)."""
+    return (Int8Dense if use_int8 else Dense)(in_features, out_features,
+                                              dtype)
+
+
 class ResidualAttentionBlock(nn.Module):
     """Pre-norm attention + MLP (model_clip.py:29-54)."""
 
     def __init__(self, cfg: ClipVisionConfig):
         super().__init__()
         self.cfg = cfg
-        w, dt = cfg.width, cfg.dtype
+        w, dt, i8 = cfg.width, cfg.dtype, cfg.int8_matmuls
         self.ln_1 = ClipLayerNorm(w)
-        self.attn_in_proj = Dense(w, 3 * w, dt)
-        self.attn_out_proj = Dense(w, w, dt)
+        self.attn_in_proj = MaybeInt8Dense(w, 3 * w, i8, dt)
+        self.attn_out_proj = MaybeInt8Dense(w, w, i8, dt)
         self.ln_2 = ClipLayerNorm(w)
-        self.mlp_c_fc = Dense(w, 4 * w, dt)
-        self.mlp_c_proj = Dense(4 * w, w, dt)
+        self.mlp_c_fc = MaybeInt8Dense(w, 4 * w, i8, dt)
+        self.mlp_c_proj = MaybeInt8Dense(4 * w, w, i8, dt)
 
     def forward(self, x):
         c = self.cfg

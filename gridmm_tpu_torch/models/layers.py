@@ -21,6 +21,8 @@ from torch import nn
 
 from gridmm_tpu_torch.config import ModelConfig
 from gridmm_tpu_torch.ops.masking import attn_bias_from_mask
+from gridmm_tpu_torch.ops.quant import int8_dense_q, quantize_per_channel
+from gridmm_tpu_torch.parallel.tp import TensorParallel
 
 
 def gelu_erf(x):
@@ -38,7 +40,11 @@ ACT2FN: dict[str, Callable] = {
 
 class Dense(nn.Linear):
     """flax `nn.Dense` twin: computes in `dtype` (inputs and parameters cast,
-    as flax promotes them); parameters stay f32."""
+    as flax promotes them); parameters stay f32. Under tensor parallelism
+    (`tp`, set by parallel/mesh.py) the weight is the rank's shard and the
+    product a column- or row-parallel one."""
+
+    tp: Optional[TensorParallel] = None
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32, bias: bool = True):
@@ -48,7 +54,65 @@ class Dense(nn.Linear):
     def forward(self, x):
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
+        if self.tp is not None:
+            return self.tp.linear(x.to(dt), self.weight.to(dt), b)
         return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class Embedding(nn.Embedding):
+    """nn.Embedding whose table may be sharded over the vocabulary (`tp`,
+    set by parallel/mesh.py for the word embeddings)."""
+
+    tp: Optional[TensorParallel] = None
+
+    def forward(self, ids):
+        if self.tp is not None:
+            return self.tp.embedding(ids, self.weight)
+        return super().forward(ids)
+
+
+class Int8Dense(Dense):
+    """`Dense` with the same parameters whose product runs on the int8 path
+    (ops/quant.py): the JAX package's `Int8Dense`, for serving. The result
+    is in the input's dtype.
+
+    The JAX package quantizes the weight inside `jit`, where XLA hoists it
+    out of the step; eager torch would quantize again at every call. So the
+    int8 weight and its scales are cached in buffers that are not
+    persistent (the `state_dict` is `Dense`'s) and rebuilt when the weight
+    is another tensor or was written since (`_version`). A weight given in
+    place of the parameter (`torch.func.functional_call`, the exported
+    programs) is quantized in the call."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__(in_features, out_features, dtype, bias)
+        self.register_buffer("weight_q", None, persistent=False)
+        self.register_buffer("weight_scale", None, persistent=False)
+        self._cache_key = None
+
+    def quantized(self):
+        """(int8 weight (out, in), f32 scale (out,))."""
+        w = self.weight
+        if not isinstance(w, nn.Parameter) or torch.compiler.is_compiling():
+            return quantize_per_channel(w)
+        key = (w.data_ptr(), w.device, w._version)
+        if key != self._cache_key:
+            with torch.no_grad():
+                self.weight_q, self.weight_scale = quantize_per_channel(w)
+            self._cache_key = key
+        return self.weight_q, self.weight_scale
+
+    def forward(self, x):
+        wq, scale = self.quantized()
+        return int8_dense_q(x, wq, scale, self.bias)
+
+
+def dense(in_features: int, out_features: int, cfg: ModelConfig) -> Dense:
+    """The trunk projections: `Int8Dense` under cfg.int8_matmuls, as the
+    JAX package's `_dense(..., c.int8_matmuls)`, else `Dense`."""
+    cls = Int8Dense if cfg.int8_matmuls else Dense
+    return cls(in_features, out_features, cfg.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -75,15 +139,17 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        hs, dt = cfg.hidden_size, cfg.dtype
-        self.query = Dense(hs, hs, dt)
-        self.key = Dense(hs, hs, dt)
-        self.value = Dense(hs, hs, dt)
+        hs = cfg.hidden_size
+        self.query = dense(hs, hs, cfg)
+        self.key = dense(hs, hs, cfg)
+        self.value = dense(hs, hs, cfg)
         self.dropout = nn.Dropout(cfg.attention_probs_dropout_prob)
 
     def forward(self, q_in, kv_in, bias=None):
         c = self.cfg
         h, hd = c.num_attention_heads, c.head_dim
+        if self.query.tp is not None:  # column-parallel: this rank's heads
+            h //= self.query.tp.size
 
         def split(x):  # (B, L, W) -> (B, H, L, hd)
             b, l, _ = x.shape
@@ -99,7 +165,7 @@ class MultiHeadAttention(nn.Module):
         probs = self.dropout(torch.softmax(scores, dim=-1))
         ctx = torch.matmul(probs.to(v.dtype), v).to(c.dtype)
         b, _, lq, _ = ctx.shape
-        return ctx.transpose(1, 2).reshape(b, lq, c.hidden_size)
+        return ctx.transpose(1, 2).reshape(b, lq, h * hd)
 
 
 class AttentionOutput(nn.Module):
@@ -108,7 +174,7 @@ class AttentionOutput(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.dense = Dense(cfg.hidden_size, cfg.hidden_size, cfg.dtype)
+        self.dense = dense(cfg.hidden_size, cfg.hidden_size, cfg)
         self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
@@ -146,10 +212,10 @@ class BertFFN(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.act = ACT2FN[cfg.hidden_act]
-        self.intermediate_dense = Dense(cfg.hidden_size,
-                                        cfg.intermediate_size, cfg.dtype)
-        self.output_dense = Dense(cfg.intermediate_size, cfg.hidden_size,
-                                  cfg.dtype)
+        self.intermediate_dense = dense(cfg.hidden_size,
+                                        cfg.intermediate_size, cfg)
+        self.output_dense = dense(cfg.intermediate_size, cfg.hidden_size,
+                                  cfg)
         self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
         self.output_LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
@@ -178,7 +244,7 @@ class BertEmbeddings(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
                                                 cfg.hidden_size)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
@@ -270,14 +336,14 @@ class PreNormEncoderLayer(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        hs, inter, dt = cfg.hidden_size, cfg.intermediate_size, cfg.dtype
+        hs, inter = cfg.hidden_size, cfg.intermediate_size
         self.act = ACT2FN[cfg.hidden_act]
         self.norm1 = LayerNorm(hs, cfg.layer_norm_eps)
         self.self_attn = MultiHeadAttention(cfg)
-        self.attn_out = Dense(hs, hs, dt)
+        self.attn_out = dense(hs, hs, cfg)
         self.norm2 = LayerNorm(hs, cfg.layer_norm_eps)
-        self.linear1 = Dense(hs, inter, dt)
-        self.linear2 = Dense(inter, hs, dt)
+        self.linear1 = dense(hs, inter, cfg)
+        self.linear2 = dense(inter, hs, cfg)
         self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, x, bias=None):

@@ -132,7 +132,12 @@ class GridMMNavigator(nn.Module):
     `local_lang_branch` builds the local encoder's language branch
     (`CrossmodalEncoder.lang2visn`), which only pretraining's MLM runs
     (models/pretrain.py); navigation never calls it, and flax creates its
-    parameters only where it runs."""
+    parameters only where it runs.
+
+    `batch_max` (set by parallel/mesh.ShardedParams during a sharded
+    update) takes the stray-key count's batch max over the data ranks."""
+
+    batch_max = None
 
     def __init__(self, cfg: ModelConfig, local_lang_branch: bool = False):
         super().__init__()
@@ -309,7 +314,7 @@ class GridMMNavigator(nn.Module):
         vp_embeds = vp_img_embeds + self.vp_pos_ln(
             self.vp_pos_dense(vp_pos_fts))
 
-        stray_count = (compaction_stray_count(cell_mask)
+        stray_count = (compaction_stray_count(cell_mask, self.batch_max)
                        if c.compaction_stray_keys else None)
         map_embeds, gmap_out, vp_out = self.fusion_trunk(
             txt_embeds, txt_mask, grid_embeds, cell_mask,

@@ -44,8 +44,10 @@ class TrajectoryEncodings(NamedTuple):
 
 class MLMHead(nn.Module):
     """BertLMPredictionHead (vilmodel.py:274-306). The decoder is tied to
-    the word embeddings (pretrain_cmt.py:68-71): the caller passes the table
-    and the head owns only the transform and the output bias."""
+    the word embeddings (pretrain_cmt.py:68-71): the caller passes the
+    embedding module and the head owns only the transform and the output
+    bias. A table sharded over the vocabulary gives logits over the rank's
+    rows, gathered to the full vocabulary before the bias."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -55,9 +57,12 @@ class MLMHead(nn.Module):
         self.transform_LayerNorm = LayerNorm(hs, cfg.layer_norm_eps)
         self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
 
-    def forward(self, hidden, word_embedding_table):
+    def forward(self, hidden, word_embeddings):
         h = self.transform_LayerNorm(self.act(self.transform_dense(hidden)))
-        return F.linear(h, word_embedding_table.to(h.dtype)) + self.bias
+        table = word_embeddings.weight.to(h.dtype)
+        if word_embeddings.tp is not None:
+            return word_embeddings.tp.tied_logits(h, table) + self.bias
+        return F.linear(h, table) + self.bias
 
 
 class GridMMPretrain(nn.Module):
@@ -79,7 +84,7 @@ class GridMMPretrain(nn.Module):
         the pretraining model has the navigator's aliased compaction loop."""
         if not self.cfg.compaction_stray_keys:
             return None
-        return compaction_stray_count(cell_mask)
+        return compaction_stray_count(cell_mask, self.bert.batch_max)
 
     # ------------------------------------------------------------ aggregation
     @staticmethod
@@ -219,8 +224,7 @@ class GridMMPretrain(nn.Module):
         visn_mask = torch.cat([gmap_mask, vp_mask], dim=1)
         txt_embeds = self.bert.local_encoder.lang2visn(txt_embeds, txt_mask,
                                                        visn, visn_mask)
-        return self.mlm_head(txt_embeds,
-                             self.bert.embeddings.word_embeddings.weight)
+        return self.mlm_head(txt_embeds, self.bert.embeddings.word_embeddings)
 
     def forward_mrc_logits(self, enc: TrajectoryEncodings):
         """Soft-label region classification over the last step's view tokens

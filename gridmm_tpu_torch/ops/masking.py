@@ -35,7 +35,8 @@ def mask_logits(logits: torch.Tensor, mask: torch.Tensor,
     return logits.masked_fill(~mask, neg)
 
 
-def compaction_stray_count(cell_mask: torch.Tensor) -> torch.Tensor:
+def compaction_stray_count(cell_mask: torch.Tensor,
+                           batch_max=None) -> torch.Tensor:
     """Per-item count of the reference's stray compaction keys.
 
     The reference's max_cell_num compaction loop mutates grid_masks[b] through
@@ -46,10 +47,15 @@ def compaction_stray_count(cell_mask: torch.Tensor) -> torch.Tensor:
     navigator reproduces it as one zero token with a log(count) key bias.
 
     cell_mask: (B, C) bool occupied-cell mask. Returns (B,) int32.
+    `batch_max` takes the max over a batch split across data-parallel ranks
+    (parallel/mesh.py), so that max_cell_num is the whole batch's, as in the
+    JAX step over the sharded batch.
     """
     m = cell_mask.to(torch.int32)
     cnt = m.sum(dim=1)                                   # (B,)
     max_cell = cnt.max()                                 # batch max_cell_num
+    if batch_max is not None:
+        max_cell = batch_max(max_cell)
     idx = torch.arange(cell_mask.shape[1], device=cell_mask.device)[None, :]
     ge = m * (idx >= cnt[:, None])
     k = ge.sum(dim=1)                                    # ones at p >= cnt

@@ -76,6 +76,36 @@ def _end_generator_capture(device) -> None:
         x.add_(1.0)
 
 
+def _shard_for_rank(mesh: dict, state_dict, batch: int):
+    """A sharded bundle's share for this rank: (its slices of the full
+    state dict, its rank, its slots). Raises unless this process is a rank
+    of a world of the bundle's data x model size whose mesh groups carry
+    the recorded names."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    from gridmm_tpu_torch.parallel.mesh import local_slice
+
+    dp, mp = mesh["data"], mesh["model"]
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != dp * mp:
+        raise ValueError(f"bundle exported for a {dp}x{mp} mesh "
+                         f"({dp * mp} ranks); this world has {world}")
+    rank = dist.get_rank()
+    for axis, name in mesh["groups"][rank].items():
+        try:
+            _resolve_process_group(name)
+        except (KeyError, ValueError, RuntimeError) as e:
+            raise ValueError(
+                f"rank {rank}'s {axis} collectives run on process group "
+                f"{name!r}, which this process does not have: make the "
+                f"{dp}x{mp} mesh first (parallel.mesh.make_mesh)") from e
+    pls = mesh["placements"]
+    shards = {k: local_slice(v, tuple(pls[k]), dp, mp, rank // mp, rank % mp)
+              if k in pls else v for k, v in state_dict.items()}
+    return shards, rank, batch // dp
+
+
 class NavServingEngine:
     """Fixed-slot continuous batching over the navigator's step."""
 
@@ -147,20 +177,41 @@ class NavServingEngine:
         """Serve from exported programs (utils/export.py): no model code.
         `state_dict` holds the navigator's weights (any checkpoint of the
         bundle's architecture; moved to `device`); `batch` must equal the
-        bundle's exported batch."""
+        bundle's exported batch. An int8 bundle's programs quantize the
+        weights they are given at every step.
+
+        A sharded bundle (export_navigator_serving_sharded) runs on every
+        rank of the (data, model) mesh it was exported for, with the same
+        process groups (made in the same order, e.g. by
+        parallel.mesh.make_mesh); each rank loads its programs, keeps its
+        slices of the full `state_dict` and serves batch / dp slots (the
+        ranks of one model group take the same requests). Under another
+        world or other groups it raises."""
         import json
         import os
 
         from gridmm_tpu_torch.utils.export import load_exported
 
         with open(os.path.join(bundle_dir, "manifest.json")) as f:
-            exported_batch = json.load(f).get("batch")
+            manifest = json.load(f)
+        exported_batch = manifest.get("batch")
         if exported_batch is not None and exported_batch != batch:
             raise ValueError(f"bundle exported for batch {exported_batch}, "
                              f"engine asked for {batch}")
-        lang = load_exported(os.path.join(bundle_dir, "language.pt2")
+        if bool(manifest.get("int8", False)) != cfg.model.int8_matmuls:
+            raise ValueError(
+                f"bundle exported with int8={manifest.get('int8', False)}, "
+                f"config has int8_matmuls={cfg.model.int8_matmuls}")
+        files = {name: art["file"]
+                 for name, art in manifest["artifacts"].items()}
+        mesh = manifest.get("mesh")
+        if mesh is not None:
+            state_dict, rank, batch = _shard_for_rank(mesh, state_dict,
+                                                      batch)
+            files = {k: v.format(rank=rank) for k, v in files.items()}
+        lang = load_exported(os.path.join(bundle_dir, files["language"])
                              ).module()
-        step = load_exported(os.path.join(bundle_dir, "nav_step.pt2")
+        step = load_exported(os.path.join(bundle_dir, files["nav_step"])
                              ).module()
         params = {k: v.to(device) for k, v in state_dict.items()}
 

@@ -8,14 +8,21 @@ train with teacher/sample interleave for DAgger).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Dict, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from gridmm_tpu_torch.config import GridMMConfig
 from gridmm_tpu_torch.models.navigator import GridMMNavigator
+from gridmm_tpu_torch.parallel.mesh import ShardedParams, mesh_shape
+from gridmm_tpu_torch.parallel.multihost import (process_count,
+                                                 process_index,
+                                                 weighted_mean_scalars)
 from gridmm_tpu_torch.train.agent import NavAgent
 from gridmm_tpu_torch.train.recollection import pad_to_steps
 from gridmm_tpu_torch.train.step import (batch_to_device, create_train_state,
@@ -63,11 +70,19 @@ def train_navigator(
 
     Dropout is on during the replay updates and off in the rollouts and the
     evaluation, as in the JAX package.
+
+    mesh (a (data, model) DeviceMesh from parallel.mesh.make_mesh) shards
+    the update, the counterpart of the reference's DDP wrap
+    (agent_base.py:115-117) and of the JAX loop's mesh: the parameters are
+    laid out by the TP rules over `model`, every agent rolls out this
+    rank's own episodes (the JAX
+    host_local_array_to_global_array path), and the update's loss and
+    gradients are those of all data ranks' episodes together. The ranks
+    agree on the episode bucket and on the best-SPL decision, and rank 0
+    writes full checkpoints, the files one process writes. On return the
+    module holds full, plain parameters again on every rank.
+    cfg.train.batch_size must be divisible by the data-axis size.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (data/tensor-parallel training) waits for the parallel "
-            "layer (parallel/mesh.py; ROADMAP Queue 1, parallel layer)")
     for a in (agent, val_agent, aug_agent):
         if a is not None and a.model is not model:
             raise ValueError("every agent must hold the module being trained")
@@ -77,8 +92,21 @@ def train_navigator(
     timer = SectionTimer()
     dagger_sum = cfg.train.dagger_sum
     device = agent.device
+    sharded = None
+    if mesh is not None:
+        dp = mesh_shape(mesh)[0]
+        if cfg.train.batch_size % dp:
+            raise ValueError(f"batch_size {cfg.train.batch_size} not "
+                             f"divisible by data-parallel size {dp}")
+        sharded = ShardedParams(model, mesh)
 
-    state = create_train_state(cfg, model)
+    def local_view():
+        """The parameters as the rollouts and the evaluation compute with
+        them."""
+        return (sharded.compute_params() if sharded is not None
+                else contextlib.nullcontext())
+
+    state = create_train_state(cfg, model, sharded=sharded)
     train_step = make_train_step(cfg)
     dagger_step = make_dagger_step(cfg) if dagger_sum else None
     np_rng = np.random.default_rng(seed)
@@ -92,13 +120,26 @@ def train_navigator(
     saver = AsyncSaver()
 
     def _save(name):
-        if ckpt_dir:
-            saver.save(os.path.join(os.path.abspath(ckpt_dir), name),
-                       model.state_dict())
+        if not ckpt_dir:
+            return
+        # every rank gathers (a collective), rank 0 writes
+        sd = (sharded.full_state_dict() if sharded is not None
+              else model.state_dict())
+        if process_index() == 0:
+            saver.save(os.path.join(os.path.abspath(ckpt_dir), name), sd)
 
     def _bucket(s: int) -> int:
         """Smallest configured bucket covering s (else max_action_len), so
-        short episodes skip the padded tail of the step loop."""
+        short episodes skip the padded tail of the step loop.
+
+        Several ranks roll out different episodes, so they agree on the
+        bucket of the LONGEST one (an all-reduce MAX): every rank then
+        runs the same update, whose collectives would otherwise wait on
+        each other at different points."""
+        if process_count() > 1 and cfg.train.scan_buckets:
+            t = torch.tensor([s], dtype=torch.int64, device=device)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+            s = int(t.item())
         buckets = cfg.train.scan_buckets
         if not buckets:
             return cfg.train.max_action_len
@@ -106,8 +147,9 @@ def train_navigator(
         return min(fits) if fits else cfg.train.max_action_len
 
     def _rollout(cur_agent, feedback):
-        _, batch, _ = cur_agent.rollout(feedback=feedback, record=True,
-                                        rng=np_rng)
+        with local_view():
+            _, batch, _ = cur_agent.rollout(feedback=feedback, record=True,
+                                            rng=np_rng)
         return batch
 
     def _pad(batch, num_steps=None):
@@ -153,8 +195,14 @@ def train_navigator(
                 _save("latest")
 
             if it % log_every == 0 and val_agent is not None:
-                with timer.section("eval"):
-                    avg, _ = val_agent.evaluate(eval_batches)
+                with timer.section("eval"), local_view():
+                    avg, preds = val_agent.evaluate(eval_batches)
+                if process_count() > 1:
+                    # each rank evaluated its val shard (sel_data_idxs): the
+                    # count-weighted mean is the metric over all shards'
+                    # predictions, so every rank takes the SAME best-SPL
+                    # decision
+                    avg = weighted_mean_scalars(avg, float(len(preds)))
                 logger.log(it, avg, prefix="val/")
                 final_metrics = avg
                 # >= so equal-SPL ties keep the LATEST checkpoint, matching
@@ -165,13 +213,19 @@ def train_navigator(
     except BaseException:
         # interrupted (preemption / SIGINT): park a resumable checkpoint
         # before propagating; --resume picks it up. Never let a save
-        # failure mask the original exception.
+        # failure mask the original exception. Under a mesh the other
+        # ranks may not reach the gather, so the last cadence 'latest'
+        # stays the resume point.
         try:
-            _save("latest")
+            if sharded is None:
+                _save("latest")
             saver.close()  # make the interrupt save durable before exiting
         except Exception as save_err:
             print(f"interrupt-save failed: {save_err!r}", flush=True)
         raise
     saver.close()
+    if sharded is not None:
+        # the trained module serves on as one process's (submit, export)
+        sharded.unshard()
     logger.log(iters, timer.summary(), prefix="time/")
     return TrainerResult(best_spl, best_iter, final_metrics)

@@ -13,12 +13,15 @@ applies them, in one `torch.optim.Optimizer`.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from gridmm_tpu_torch.config import TrainConfig
+from gridmm_tpu_torch.parallel.mesh import replicas
 
 Schedule = Callable[[int], float]
 RULES = ("adamw", "adam", "rms", "sgd", "radam", "rangerlars")
@@ -53,9 +56,23 @@ def warmup_linear_schedule(lr: float, warmup_steps: int,
     return schedule
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over all tensors (optax.global_norm)."""
-    return torch.sqrt(sum((t.detach().float() ** 2).sum() for t in tensors))
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view its updates write through), or t."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def sq_sum(params, tensors) -> torch.Tensor:
+    """The sum of squares of the full tensors that `tensors` hold, laid out
+    like `params`: a plain parameter's tensor is whole; a DTensor
+    parameter's is its local shard, whose sum is weighted by 1 / the number
+    of ranks holding the same shard and then summed over the world, so that
+    each element counts once (optax.global_norm squared, over sharded
+    arrays)."""
+    total = sum((t.detach().float() ** 2).sum() / replicas(p)
+                for p, t in zip(params, tensors))
+    if any(isinstance(p, DTensor) for p in params):
+        dist.all_reduce(total)
+    return total
 
 
 class ChainOptimizer(torch.optim.Optimizer):
@@ -68,6 +85,11 @@ class ChainOptimizer(torch.optim.Optimizer):
     Lookahead(RAdam + layerwise trust ratio): every `sync_period` updates
     the slow weights move `slow_step_size` of the way to the fast ones and
     the fast ones restart from them (pretrain_src/optim/lookahead.py:29-52).
+
+    Parameters that are DTensors (parallel/mesh.ShardedParams) update
+    their local shards; the norms that the clip and the trust ratio take
+    are those of the full tensors (`sq_sum`), so every rank clips
+    by the global norm, as the JAX step over sharded arrays does.
     """
 
     def __init__(self, params, rule: str, lr: Union[float, Schedule],
@@ -98,17 +120,19 @@ class ChainOptimizer(torch.optim.Optimizer):
                   if p.requires_grad]
         # a parameter the loss did not reach has a zero gradient, as under
         # jax.grad: its moments decay and weight decay still applies
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        g_norm = global_norm(grads)
+        grads = [_local(p.grad) if p.grad is not None
+                 else torch.zeros_like(_local(p)) for p in params]
+        g_norm = torch.sqrt(sq_sum(params, grads))
         self.last_grad_norm = g_norm
         # optax: keep the gradient when g_norm < clip, else g / g_norm * clip
         keep = g_norm < self.clip
         lr = self.lr(self.count) if callable(self.lr) else self.lr
         t = self.count + 1
-        for p, grad in zip(params, grads):
+        for param, grad in zip(params, grads):
+            p = _local(param)
             g = torch.where(keep, grad, (grad / g_norm) * self.clip)
-            st = self.state[p]
+            st = self.state[param]
+            self._param = param
             u = getattr(self, f"_{self.rule}")(p, g, st, t)
             if self.rule == "rangerlars":
                 self._lookahead(p, -lr * u, st, t)
@@ -131,7 +155,7 @@ class ChainOptimizer(torch.optim.Optimizer):
 
     def _adamw(self, p, g, st, t):
         u = self._adam(p, g, st, t)
-        if self._decay is None or self._decay[p]:
+        if self._decay is None or self._decay[self._param]:
             u = u + self.weight_decay * p
         return u
 
@@ -161,7 +185,8 @@ class ChainOptimizer(torch.optim.Optimizer):
     def _rangerlars(self, p, g, st, t):
         # optax.scale_by_trust_ratio: |p| / |u|, 1 where either norm is 0
         u = self._radam(p, g, st, t)
-        p_norm, u_norm = torch.linalg.norm(p), torch.linalg.norm(u)
+        p_norm, u_norm = (torch.sqrt(sq_sum([self._param], [x]))
+                          for x in (p, u))
         ratio = torch.where((p_norm == 0) | (u_norm == 0),
                             torch.ones_like(p_norm), p_norm / u_norm)
         return u * ratio

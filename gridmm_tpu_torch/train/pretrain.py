@@ -17,9 +17,10 @@ import torch
 from gridmm_tpu_torch.config import GridMMConfig, ModelConfig
 from gridmm_tpu_torch.models.layers import init_weights
 from gridmm_tpu_torch.models.pretrain import GridMMPretrain
-from gridmm_tpu_torch.train.losses import (cross_entropy_ignore, mlm_loss,
+from gridmm_tpu_torch.train.losses import (GlobalSum, cross_entropy_ignore,
+                                           mlm_loss,
                                            mrc_kl_loss, sap_loss)
-from gridmm_tpu_torch.train.step import TrainState, _seeded
+from gridmm_tpu_torch.train.step import TrainState, _seeded, _update_scope
 
 
 class PretrainBatch(NamedTuple):
@@ -87,13 +88,17 @@ def _mask_mrc_features(batch: PretrainBatch) -> PretrainBatch:
     return batch._replace(traj_view_fts=fts)
 
 
-def task_loss(model: GridMMPretrain, batch: PretrainBatch, task: str):
+def task_loss(model: GridMMPretrain, batch: PretrainBatch, task: str,
+              global_sum: GlobalSum = None):
     """Per-task scalar loss (pretrain_cmt.py forward_*). Dropout follows
-    `model.training`."""
+    `model.training`. With `global_sum` (a data-parallel rank's slice of
+    the batch) every mean divides by the global batch's count, so the
+    ranks' losses sum to the loss of the whole batch."""
     if task == "mlm":
         logits = model.forward_mlm_logits(batch.txt_ids, batch.txt_mask,
                                           _enc_kwargs(batch))
-        return mlm_loss(logits, batch.txt_labels, ignore_id=-1)
+        return mlm_loss(logits, batch.txt_labels, ignore_id=-1,
+                        global_sum=global_sum)
     if task not in ("mrc", "sap", "og"):
         raise ValueError(task)
     if task == "mrc":
@@ -103,16 +108,20 @@ def task_loss(model: GridMMPretrain, batch: PretrainBatch, task: str):
     enc = model.encode(batch.txt_ids, batch.txt_mask, **_enc_kwargs(batch))
     if task == "mrc":
         return mrc_kl_loss(model.forward_mrc_logits(enc), batch.view_probs,
-                           batch.view_mrc_masks)
+                           batch.view_mrc_masks, global_sum)
     if task == "sap":
         g, lo, f, gr = model.forward_sap_logits(
             enc, batch.gmap_mask, batch.gmap_visited_mask, batch.vp_nav_mask,
             batch.fused_add_idx, batch.cand_backtrack_mask)
-        return sap_loss(g, lo, f, gr, batch.global_act_labels,
-                        batch.local_act_labels).mean()
+        per_example = sap_loss(g, lo, f, gr, batch.global_act_labels,
+                               batch.local_act_labels, global_sum)
+        if global_sum is None:
+            return per_example.mean()
+        n = per_example.new_tensor(float(per_example.shape[0]))
+        return per_example.sum() / global_sum(n)
     logits = model.forward_og_logits(enc, batch.vp_obj_mask)
     return cross_entropy_ignore(logits, batch.obj_labels, ignore_id=-100,
-                                reduction="mean")
+                                reduction="mean", global_sum=global_sum)
 
 
 def make_pretrain_step(cfg: GridMMConfig, task: str):
@@ -124,12 +133,16 @@ def make_pretrain_step(cfg: GridMMConfig, task: str):
     def step(state: TrainState, batch: PretrainBatch,
              seed: int = 0) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        with _seeded(seed, state.step, batch.txt_ids.device):
-            loss = task_loss(state.model, batch, task)
+        sp = state.sharded
+        with _update_scope(state, seed, state.step, batch.txt_ids.device):
+            loss = task_loss(state.model, batch, task,
+                             sp.global_sum if sp else None)
             loss.backward()
+            if sp:
+                sp.reduce_grads()
         state.optimizer.step()
         state.step += 1
-        return {f"loss_{task}": loss.detach(),
+        return {f"loss_{task}": sp.global_sum(loss) if sp else loss.detach(),
                 "grad_norm": state.optimizer.last_grad_norm}
 
     return step
@@ -149,12 +162,18 @@ def make_pretrain_accum_step(cfg: GridMMConfig, task: str, accum: int = 2):
             raise ValueError(f"{len(batches)} microbatches for a window of "
                              f"{accum}")
         state.optimizer.zero_grad(set_to_none=True)
+        sp = state.sharded
         losses = []
-        for i, mb in enumerate(batches):
-            with _seeded(seed, state.step * accum + i, mb.txt_ids.device):
-                loss = task_loss(state.model, mb, task)
-                (loss / accum).backward()
-            losses.append(loss.detach())
+        with _update_scope(state, None, 0, batches[0].txt_ids.device):
+            for i, mb in enumerate(batches):
+                with _seeded(seed + (sp.dp_rank * 1000 if sp else 0),
+                             state.step * accum + i, mb.txt_ids.device):
+                    loss = task_loss(state.model, mb, task,
+                                     sp.global_sum if sp else None)
+                    (loss / accum).backward()
+                losses.append(sp.global_sum(loss) if sp else loss.detach())
+            if sp:
+                sp.reduce_grads()
         state.optimizer.step()
         state.step += 1
         return {f"loss_{task}": torch.stack(losses).mean(),

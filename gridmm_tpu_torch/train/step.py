@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from gridmm_tpu_torch.config import GridMMConfig
 from gridmm_tpu_torch.models.navigator import GridMMNavigator, NavOutputs
 from gridmm_tpu_torch.ops import geometry as G
+from gridmm_tpu_torch.parallel.mesh import ShardedParams
 from gridmm_tpu_torch.train.losses import cross_entropy_ignore
 from gridmm_tpu_torch.train.optimizers import ChainOptimizer
 
@@ -87,11 +88,15 @@ def batch_to_device(batch: TrajectoryBatch, device,
 @dataclasses.dataclass
 class TrainState:
     """What a train step updates in place: the module, its optimizer and the
-    number of updates made (the JAX package's (params, opt_state, step))."""
+    number of updates made (the JAX package's (params, opt_state, step)).
+    `sharded` (parallel/mesh.ShardedParams) lays the module's parameters
+    over a device mesh: the step's batch is then this rank's slice, and
+    the loss and gradients are those of the whole batch."""
 
     model: GridMMNavigator
     optimizer: ChainOptimizer
     step: int = 0
+    sharded: Optional[ShardedParams] = None
 
 
 def make_optimizer(cfg: GridMMConfig, model: GridMMNavigator
@@ -105,9 +110,13 @@ def make_optimizer(cfg: GridMMConfig, model: GridMMNavigator
 
 
 def create_train_state(cfg: GridMMConfig, model: GridMMNavigator,
-                       optimizer: Optional[ChainOptimizer] = None
+                       optimizer: Optional[ChainOptimizer] = None,
+                       sharded: Optional[ShardedParams] = None
                        ) -> TrainState:
-    return TrainState(model, optimizer or make_optimizer(cfg, model), 0)
+    """`sharded` must already hold `model` (it replaces the parameters
+    that the optimizer takes)."""
+    return TrainState(model, optimizer or make_optimizer(cfg, model), 0,
+                      sharded)
 
 
 class NavCarry(NamedTuple):
@@ -291,7 +300,8 @@ def _check_capacity(cfg, s: int) -> None:
 
 def _trajectory_loss_stacked(model: GridMMNavigator, cfg: GridMMConfig,
                              batch: TrajectoryBatch,
-                             ml_weight: Optional[float] = None):
+                             ml_weight: Optional[float] = None,
+                             sharded: Optional[ShardedParams] = None):
     """Teacher-forced loss with one shared full-trajectory point buffer.
 
     Replay knows the whole trajectory up front, so all steps' patches are
@@ -362,20 +372,23 @@ def _trajectory_loss_stacked(model: GridMMNavigator, cfg: GridMMConfig,
             total = total + checkpoint(nav_step, *args, use_reentrant=False)
         else:
             total = total + nav_step(*args)
-    return _scale_trajectory_loss(cfg, batch, total, b, ml_weight)
+    return _scale_trajectory_loss(cfg, batch, total, b, ml_weight, sharded)
 
 
 def trajectory_loss(model: GridMMNavigator, cfg: GridMMConfig,
                     batch: TrajectoryBatch,
-                    ml_weight: Optional[float] = None):
+                    ml_weight: Optional[float] = None,
+                    sharded: Optional[ShardedParams] = None):
     """Teacher-forced loss over a full episode batch, all on the device.
 
     cfg.train.stacked_replay=True (default) uses the stacked formulation
     above; False keeps the incremental point buffer, the graph the
     interactive rollout uses. Dropout follows `model.training`; each step
-    draws fresh masks from torch's generator."""
+    draws fresh masks from torch's generator. With `sharded`, `batch` is
+    this rank's slice and the loss its share of the whole batch's loss
+    (`_scale_trajectory_loss`)."""
     if cfg.train.stacked_replay:
-        return _trajectory_loss_stacked(model, cfg, batch, ml_weight)
+        return _trajectory_loss_stacked(model, cfg, batch, ml_weight, sharded)
     s, b = batch.steps.target.shape
     _check_capacity(cfg, s)
     txt_embeds = model("language", {"txt_ids": batch.txt_ids,
@@ -398,21 +411,27 @@ def trajectory_loss(model: GridMMNavigator, cfg: GridMMConfig,
         else:
             carry, step_loss = device_step(carry, x_t)
         total = total + step_loss
-    return _scale_trajectory_loss(cfg, batch, total, b, ml_weight)
+    return _scale_trajectory_loss(cfg, batch, total, b, ml_weight, sharded)
 
 
-def _scale_trajectory_loss(cfg, batch, total, b, ml_weight):
+def _scale_trajectory_loss(cfg, batch, total, b, ml_weight, sharded=None):
     """Discrete fine-tune scales by ml_weight / batch_size (agent.py:447; the
     DAgger student-sampled pass uses weight 1.0, agent_base.py:164-196).
     VLN-CE (cfg.train.loss_norm='actions') divides by the number of
     non-ignored targets instead, with no ml_weight factor
-    (ss_trainer_GridMap.py:284,493)."""
+    (ss_trainer_GridMap.py:284,493).
+
+    Under a mesh both denominators are the whole batch's: the batch size
+    times dp, the action count summed over the data ranks (the ranks'
+    counts differ, and a mean of per-rank means is not the JAX loss). The
+    gradients are then summed over the ranks, never averaged."""
     if cfg.train.loss_norm == "actions":
-        denom = torch.clamp(
-            (batch.steps.target != cfg.train.ignoreid).sum(), min=1)
-        return total / denom
+        count = (batch.steps.target != cfg.train.ignoreid).sum()
+        if sharded is not None:
+            count = sharded.global_sum(count)
+        return total / torch.clamp(count, min=1)
     w = cfg.train.ml_weight if ml_weight is None else ml_weight
-    return total * w / b
+    return total * w / (b * (sharded.dp if sharded is not None else 1))
 
 
 @contextlib.contextmanager
@@ -425,21 +444,42 @@ def _seeded(seed: int, step: int, device):
         yield
 
 
+@contextlib.contextmanager
+def _update_scope(state: TrainState, seed: Optional[int], step: int, device):
+    """An update's forward and backward: the seeded dropout scope (none if
+    seed is None) and, under a mesh, the parameters as the modules compute
+    with them (ShardedParams.compute_params). The data ranks draw
+    different masks, the ranks of one model group the same ones."""
+    sp = state.sharded
+    with contextlib.ExitStack() as stack:
+        if seed is not None:
+            stack.enter_context(_seeded(
+                seed + (sp.dp_rank * 1000 if sp else 0), step, device))
+        if sp is not None:
+            stack.enter_context(sp.compute_params(grad=True))
+        yield
+
+
 def make_train_step(cfg: GridMMConfig):
     """train_step(state, batch, seed) -> metrics: one teacher-forced loss,
     one backward, one clipped optimizer update of `state.model` in place.
     Dropout is on iff `state.model.training`; `seed` and the step count seed
-    its masks."""
+    its masks. Under a mesh (`state.sharded`) the batch is the rank's
+    slice; the loss is the whole batch's, the gradients are summed over the
+    data ranks before the update."""
 
     def train_step(state: TrainState, batch: TrajectoryBatch,
                    seed: int = 0) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        with _seeded(seed, state.step, batch.txt_ids.device):
-            loss = trajectory_loss(state.model, cfg, batch)
+        sp = state.sharded
+        with _update_scope(state, seed, state.step, batch.txt_ids.device):
+            loss = trajectory_loss(state.model, cfg, batch, sharded=sp)
             loss.backward()
+            if sp is not None:
+                sp.reduce_grads()
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach(),
+        return {"loss": sp.global_sum(loss) if sp else loss.detach(),
                 "grad_norm": state.optimizer.last_grad_norm}
 
     return train_step
@@ -456,14 +496,18 @@ def make_dagger_step(cfg: GridMMConfig):
                    sample_batch: TrajectoryBatch,
                    seed: int = 0) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        with _seeded(seed, state.step, teacher_batch.txt_ids.device):
-            lt = trajectory_loss(state.model, cfg, teacher_batch)
+        sp = state.sharded
+        with _update_scope(state, seed, state.step,
+                           teacher_batch.txt_ids.device):
+            lt = trajectory_loss(state.model, cfg, teacher_batch, sharded=sp)
             lt.backward()
-            lt = lt.detach()
             ls = trajectory_loss(state.model, cfg, sample_batch,
-                                 ml_weight=1.0)
+                                 ml_weight=1.0, sharded=sp)
             ls.backward()
-            ls = ls.detach()
+            if sp is not None:
+                sp.reduce_grads()
+        lt, ls = ((sp.global_sum(lt), sp.global_sum(ls)) if sp
+                  else (lt.detach(), ls.detach()))
         state.optimizer.step()
         state.step += 1
         return {"loss": lt + ls, "loss_teacher": lt, "loss_sample": ls,

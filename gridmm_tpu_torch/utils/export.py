@@ -31,6 +31,15 @@ navigator's `state_dict` entries, in `state_dict` order):
 
 A program is traced for one device type and one batch; the manifest
 records both.
+
+`export_navigator_serving_sharded` is the multi-device export: one pair of
+programs per rank of a (data, model) mesh (`<name>_r<rank>.pt2`), each
+over the rank's share of the batch and its shards of the parameters (the
+parallel/mesh.py rules), with the tensor-parallel sums (and, with fsdp,
+the all-gathers over `data`) inside the program as functional
+collectives. The manifest records the mesh, each parameter's placement
+and the collectives' process-group names; `from_bundle` runs such a
+bundle on every rank of the same mesh, and raises under any other.
 """
 
 from __future__ import annotations
@@ -112,25 +121,31 @@ class _Bound:
 
 
 class _Language(torch.nn.Module):
-    def __init__(self, model):
+    def __init__(self, model, gather=None):
         super().__init__()
         # kept out of the module tree: parameters come in as an input
         self._model = [model]
+        self._gather = gather
 
     def forward(self, params, txt_ids, txt_mask):
+        if self._gather is not None:
+            params = self._gather(params)
         return _Bound(self._model[0], params)(
             "language", {"txt_ids": txt_ids, "txt_mask": txt_mask})
 
 
 class _NavStep(torch.nn.Module):
-    def __init__(self, model, cfg):
+    def __init__(self, model, cfg, gather=None):
         super().__init__()
         self._model = [model]
         self.cfg = cfg
+        self._gather = gather
 
     def forward(self, params, txt_embeds, txt_mask, carry, x):
         from gridmm_tpu_torch.train.step import StepInputs, nav_device_step
 
+        if self._gather is not None:
+            params = self._gather(params)
         # by value: append_panorama writes the point buffer in place, so
         # the step appends into a copy and the caller's carry stays intact
         carry = dict_to_carry({k: v.clone() for k, v in carry.items()})
@@ -149,13 +164,19 @@ def export_navigator_serving(model, cfg, state_dict, batch: int = 1,
     (the navigator's, on `device`) gives the parameters' shapes and types;
     the programs take parameters as their first input and keep none."""
     from gridmm_tpu_torch.serve.engine import serving_cfg
-    from gridmm_tpu_torch.train.step import init_carry
 
     cfg = serving_cfg(cfg)  # exported graphs keep rows batch-independent
     with torch.device("meta"):
         served = type(model)(cfg.model)
     served.eval()
-    params = dict(state_dict)
+    return _export(served, cfg, dict(state_dict), batch, device)
+
+
+def _export(served, cfg, params, batch, device, gather=None):
+    """torch.export of {language, nav_step} on `served` (a meta module
+    whose parameters come in as `params`) at `batch` rows."""
+    from gridmm_tpu_torch.train.step import init_carry
+
     t = cfg.shapes.max_txt_len
     txt_ids = torch.zeros((batch, t), dtype=torch.int32, device=device)
     txt_mask = torch.zeros((batch, t), dtype=torch.bool, device=device)
@@ -164,34 +185,91 @@ def export_navigator_serving(model, cfg, state_dict, batch: int = 1,
     txt_embeds = torch.zeros((batch, t, cfg.model.hidden_size),
                              device=device)
     with torch.no_grad():
-        lang = torch.export.export(_Language(served),
+        lang = torch.export.export(_Language(served, gather),
                                    (params, txt_ids, txt_mask))
-        step = torch.export.export(_NavStep(served, cfg),
+        step = torch.export.export(_NavStep(served, cfg, gather),
                                    (params, txt_embeds, txt_mask, carry, x))
     for ep in (lang, step):
         ep.example_inputs = None  # saved with the program otherwise
     return {"language": lang, "nav_step": step}
 
 
+def export_navigator_serving_sharded(model, cfg, state_dict, mesh,
+                                     batch: int, fsdp: bool = False,
+                                     device="cuda"):
+    """This rank's {language, nav_step} programs over a (data, model)
+    mesh (every rank calls it, with the same full `state_dict`): its share
+    of `batch` (batch / dp rows; `batch % dp` raises), its parameter shards
+    by the parallel/mesh.py rules (fsdp also over `data`, all-gathered in
+    the program), the tensor-parallel sums in the program. Returns
+    (exports, the manifest's "mesh" entry)."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    from gridmm_tpu_torch.parallel.mesh import (local_slice, mesh_shape,
+                                                placements, set_tp_roles)
+    from gridmm_tpu_torch.serve.engine import serving_cfg
+
+    dp, mp = mesh_shape(mesh)
+    if batch % dp:
+        raise ValueError(f"serving batch {batch} not divisible by data-axis "
+                         f"size {dp}")
+    dp_rank, mp_rank = mesh.get_local_rank(0), mesh.get_local_rank(1)
+    data_group, model_group = mesh.get_group(0), mesh.get_group(1)
+    cfg = serving_cfg(cfg)
+    with torch.device("meta"):
+        served = type(model)(cfg.model)
+    served.eval()
+    pls = placements(served, dp, mp, fsdp)
+    if mp > 1:
+        set_tp_roles(served, pls, model_group, mp, mp_rank)
+    params = {k: local_slice(v, pls[k], dp, mp, dp_rank, mp_rank)
+              if k in pls else v for k, v in state_dict.items()}
+    gathered = {k: pl[0] for k, pl in pls.items()
+                if pl[0] is not None and dp > 1}
+
+    def gather(p):
+        """fsdp: each data-sharded parameter all-gathered over `data`."""
+        return {k: funcol.all_gather_tensor(v, gathered[k], data_group)
+                if k in gathered else v for k, v in p.items()}
+
+    exports = _export(served, cfg, params, batch // dp, device,
+                      gather if gathered else None)
+    # a process group's name is the calling process's own (each rank
+    # names the groups it is in), so the manifest keeps every rank's
+    names = [None] * dist.get_world_size()
+    dist.all_gather_object(names, {"data": data_group.group_name,
+                                   "model": model_group.group_name})
+    entry = {"data": dp, "model": mp, "fsdp": fsdp,
+             "placements": {k: list(v) for k, v in pls.items()},
+             "groups": names}
+    return exports, entry
+
+
 def save_serving_bundle(exports: dict, out_dir: str, cfg=None,
-                        extra_manifest: Optional[dict] = None) -> dict:
+                        extra_manifest: Optional[dict] = None,
+                        rank: Optional[int] = None,
+                        world: int = 1) -> dict:
     """Write `<out_dir>/<name>.pt2` for each program and a manifest.json
     with the keys of the JAX bundle's (`torch_version` in the place of
-    `jax_version`)."""
+    `jax_version`). A rank of a sharded export writes `<name>_r<rank>.pt2`
+    (the manifest names the file pattern and `world` devices); only rank 0
+    writes the manifest, after every rank's files, and every rank returns
+    once it is written."""
     os.makedirs(out_dir, exist_ok=True)
     manifest = {"torch_version": torch.__version__, "artifacts": {}}
     for name, ep in exports.items():
-        fname = f"{name}.pt2"
+        fname = f"{name}.pt2" if rank is None else f"{name}_r{rank}.pt2"
         torch.export.save(ep, os.path.join(out_dir, fname))
         user = set(ep.graph_signature.user_inputs)
         devices = sorted({n.meta["val"].device.type for n in ep.graph.nodes
                           if n.op == "placeholder" and n.name in user
                           and isinstance(n.meta.get("val"), torch.Tensor)})
         manifest["artifacts"][name] = {
-            "file": fname,
+            "file": fname if rank is None else f"{name}_r{{rank}}.pt2",
             "platforms": devices,
             "num_args": len(ep.graph_signature.user_inputs),
-            "nr_devices": 1,
+            "nr_devices": world,
         }
     if cfg is not None:
         manifest["model"] = {
@@ -206,9 +284,23 @@ def save_serving_bundle(exports: dict, out_dir: str, cfg=None,
         }
     if extra_manifest:
         manifest.update(extra_manifest)
+    if rank is None:
+        _write_manifest(out_dir, manifest)
+        return manifest
+    import torch.distributed as dist
+
+    # every rank's programs are on disk before the manifest names them,
+    # and the manifest is before any rank returns (to load the bundle)
+    dist.barrier()
+    if rank == 0:
+        _write_manifest(out_dir, manifest)
+    dist.barrier()
+    return manifest
+
+
+def _write_manifest(out_dir: str, manifest: dict) -> None:
     with open(os.path.join(out_dir, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=2)
-    return manifest
 
 
 def load_exported(path: str):

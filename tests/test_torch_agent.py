@@ -371,8 +371,22 @@ def test_loop_dagger_sum_and_guards(tmp_path):
                      .splitlines()[0])
     assert rec["train/loss"] == pytest.approx(
         rec["train/loss_teacher"] + rec["train/loss_sample"], rel=1e-6)
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        TLOOP.train_navigator(tcfg, model, agent, iters=1, mesh=object())
+    # mesh= (parallel/mesh.py) over a world of one: the update runs on
+    # sharded parameters and the module comes back with plain ones
+    import torch.distributed as dist
+
+    from gridmm_tpu_torch.config import MeshConfig
+    from gridmm_tpu_torch.parallel.mesh import init_world, make_mesh
+
+    created = init_world("cpu")
+    try:
+        TLOOP.train_navigator(tcfg, model, agent, iters=1,
+                              mesh=make_mesh(MeshConfig(), "cpu"))
+    finally:
+        if created:
+            dist.destroy_process_group()
+    assert all(type(p) is torch.nn.Parameter for p in model.parameters())
+    assert not any("tp" in vars(m) for m in model.modules())
     from gridmm_tpu_torch.models.navigator import init_navigator
 
     other = TA.NavAgent(init_navigator(tcfg.model, seed=9, device="cpu"),
@@ -402,13 +416,34 @@ def test_main_nav_cli_trains_evaluates_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh", "auto"], "parallel/mesh.py"),
-    (["--multihost"], "parallel/multihost.py"),
-    (["--scene_shard"], "parallel layer"),
-    (["--mp_size", "2"], "parallel layer")])
-def test_main_nav_cli_names_what_is_not_ported(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TCLI.main(argv + ["--device", "cpu"])
+    (["--mesh", "auto"], "mesh: data=1 model=1"),
+    (["--multihost"], None),
+    (["--scene_shard"], None),
+    (["--mesh", "auto", "--mp_size", "2"], "not divisible by --mp_size 2")])
+def test_main_nav_cli_names_what_is_not_ported(argv, item, tmp_path, capsys,
+                                               monkeypatch):
+    """The parallel layer's flags are ported (parallel/): each runs one
+    iteration over a world of one (--multihost joins the one torchrun's
+    environment describes), and --mp_size that does not divide the world
+    raises the JAX error."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+                 "WORLD_SIZE": "1", "RANK": "0"}.items():
+        monkeypatch.setenv(k, v)
+    argv = argv + ["--device", "cpu", "--iters", "1", "--batch_size", "2",
+                   "--output_dir", str(tmp_path)]
+    if item and "divisible" in item:
+        with pytest.raises(ValueError, match=item):
+            TCLI.main(argv)
+    else:
+        res = TCLI.main(argv)
+        out = capsys.readouterr().out
+        assert "best_spl" in out and res.best_iter == -1
+        assert item is None or item in out
     assert TCLI.parse_args([]).device == "cuda"
 
 

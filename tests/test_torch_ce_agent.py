@@ -11,8 +11,8 @@ writer's files and a checkpoint-polling sweep; one schedule-sampled
 tests/test_torch_train.py) against JAX: loss within 1e-5 relative, the
 updated parameters within 1e-5 of each leaf's max, as
 tests/test_torch_train.py holds make_train_step; and the
-`run_ce` CLI on the CPU, train then eval, with its parallel-layer flags
-raising.
+`run_ce` CLI on the CPU, train then eval, and its parallel-layer flags
+over a world of one.
 """
 
 import dataclasses
@@ -234,13 +234,21 @@ def test_run_ce_cli_trains_then_evaluates(tmp_path):
     assert (out / "metrics.jsonl").exists()
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "auto"], ["--mp_size", "2"]],
+@pytest.mark.parametrize("flags", [["--mesh", "auto"],
+                                   ["--mesh", "auto", "--mp_size", "2"]],
                          ids=["mesh", "mp_size"])
-def test_run_ce_parallel_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        run_ce.main(["--device", "cpu"] + flags)
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        TT.CETrainer(None, None, mesh=object())
+def test_run_ce_parallel_flags_raise(flags, tmp_path):
+    """The parallel layer is ported (parallel/): --mesh auto evaluates over
+    a world of one through CETrainer(mesh=...); an --mp_size the world
+    does not divide raises the JAX mesh error."""
+    argv = ["--device", "cpu", "--run-type", "eval", "--eval_batches", "1",
+            "--max_steps", "2", "--output_dir", str(tmp_path)] + flags
+    if "--mp_size" in flags:
+        with pytest.raises(ValueError, match=r"mesh 0x2 != 1 devices"):
+            run_ce.main(argv)
+    else:
+        metrics = run_ce.main(argv)
+        assert np.isfinite(metrics["nDTW"])
 
 
 def test_run_ce_habitat_needs_habitat():

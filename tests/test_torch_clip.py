@@ -55,7 +55,8 @@ def port_tower(jcfg, params):
 
 def test_config_fields_match_jax():
     """Field for field, minus the three TPU dispatch flags; the presets
-    agree; int8 raises until ops/quant.py is ported."""
+    agree; int8_matmuls puts Int8Dense in the four projections of every
+    block (ops/quant.py)."""
     jf = {f.name for f in dataclasses.fields(JV.ClipVisionConfig)}
     tf = {f.name for f in dataclasses.fields(TV.ClipVisionConfig)}
     assert tf == jf - DROPPED_CLIP_FIELDS
@@ -63,8 +64,12 @@ def test_config_fields_match_jax():
         assert port_clip_config(getattr(JV, name)()) == getattr(TV, name)()
     assert TV.clip_b32().num_tokens == 50 and TV.clip_b32().dtype == \
         torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        TV.ClipVisionConfig(int8_matmuls=True)
+    from gridmm_tpu_torch.models.layers import Int8Dense
+
+    tower = TV.ClipVisionTransformer(TV.ClipVisionConfig(
+        input_resolution=64, width=64, layers=2, heads=4,
+        int8_matmuls=True))
+    assert sum(isinstance(m, Int8Dense) for m in tower.modules()) == 4 * 2
 
 
 @pytest.mark.parametrize("c", [768, 64, 17, 1500])

@@ -36,8 +36,21 @@ def test_presets_match_field_for_field(preset):
 
 
 def test_int8_matmuls_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        TC.ModelConfig(int8_matmuls=True)
+    """int8_matmuls is ported (ops/quant.py): the config takes it and the
+    navigator built from it runs its trunk projections on Int8Dense with
+    the f32 model's parameters."""
+    from gridmm_tpu_torch.models.layers import Dense, Int8Dense
+    from gridmm_tpu_torch.models.navigator import GridMMNavigator
+
+    cfg = TC.tiny_config()
+    m8 = GridMMNavigator(dataclasses.replace(cfg.model, int8_matmuls=True))
+    m = GridMMNavigator(cfg.model)
+    n8 = sum(isinstance(x, Int8Dense) for x in m8.modules())
+    assert n8 > 0 and not any(isinstance(x, Int8Dense) for x in m.modules())
+    assert sum(type(x) is Dense for x in m8.modules()) + n8 == sum(
+        isinstance(x, Dense) for x in m.modules())
+    assert [(k, v.shape) for k, v in m8.state_dict().items()] == \
+        [(k, v.shape) for k, v in m.state_dict().items()]
 
 
 def test_port_imports_no_jax():

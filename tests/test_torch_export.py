@@ -293,11 +293,18 @@ def test_export_serving_cli_writes_a_bundle(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--int8"], "ops/quant.py"),
-    (["--mesh", "auto"], "parallel/mesh.py"),
-    (["--mp_size", "2"], "parallel/mesh.py"),
-    (["--fsdp"], "parallel/mesh.py")])
+    (["--int8"], "int8"),
+    (["--mesh", "auto"], "mesh"),
+    (["--mp_size", "2"], None),
+    (["--fsdp"], None)])
 def test_export_serving_cli_names_what_is_not_ported(tmp_path, argv, what):
-    with pytest.raises(NotImplementedError, match=what):
-        TEXP.main(argv + ["--tiny", "--device", "cpu", "--out_dir",
-                          str(tmp_path)])
+    """Every flag is ported: --int8 writes an int8 bundle; --mesh auto the
+    sharded export (here over a world of one: rank 0's programs and the
+    mesh in the manifest); --mp_size and --fsdp shape the mesh and, as in
+    the JAX CLI, do nothing without --mesh."""
+    man = TEXP.main(argv + ["--tiny", "--device", "cpu", "--max_action_len",
+                            "2", "--out_dir", str(tmp_path)])
+    assert man["int8"] is (what == "int8")
+    assert ("mesh" in man) is (what == "mesh")
+    name = "nav_step_r0.pt2" if what == "mesh" else "nav_step.pt2"
+    assert (tmp_path / name).exists()

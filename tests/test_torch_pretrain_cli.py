@@ -64,9 +64,11 @@ def test_argument_errors_and_refusals():
                          "--init_pretrained", "bert", "--init_weights", "b"])
     with pytest.raises(SystemExit):
         TCLI.parse_args(["--init_pretrained", "lxmert"])
-    for argv in (["--mesh", "auto"], ["--mp_size", "2"]):
-        with pytest.raises(NotImplementedError, match="parallel layer"):
-            TCLI.main(argv + CPU)
+    # the parallel layer is ported: an --mp_size the world of one does not
+    # divide raises the JAX mesh error
+    assert TCLI.parse_args(["--mesh", "auto"]).mesh == "auto"
+    with pytest.raises(ValueError, match=r"mesh 0x2 != 1 devices"):
+        TCLI.main(["--mesh", "auto", "--mp_size", "2"] + CPU)
     with pytest.raises(ValueError, match="--mix_ratio"):
         TCLI.main(CPU + ["--tasks", "mlm,sap", "--mix_ratio", "1"])
 

@@ -310,3 +310,52 @@ def port_ce_agent(jagent, tcfg=None):
         load(ClipVisionTransformer(port_clip_config(jagent.clip.cfg)),
              jagent.clip_params),
         load(rgb, jagent.rgb_params), load(depth, jagent.depth_params), view)
+
+
+# ---------------------------------------------------- the parallel layer
+def shallow_parity_config(jcfg, clip=0.5, **train):
+    """A JAX config cut for the sharded-update tests: one language and one
+    cross-modal layer, every dropout 0 (the ranks would draw different
+    masks), image_prob_size 32, adam_eps 1e-2 (see test_torch_train.py) and
+    a global-norm clip of `clip`."""
+    return dataclasses.replace(
+        jcfg,
+        model=dataclasses.replace(jcfg.model, num_l_layers=1, num_x_layers=1,
+                                  hidden_dropout_prob=0.0,
+                                  attention_probs_dropout_prob=0.0,
+                                  feat_dropout=0.0, image_prob_size=32),
+        train=dataclasses.replace(jcfg.train, adam_eps=1e-2,
+                                  grad_norm_clip=clip, **train))
+
+
+def jax_params_of(model, init_fn):
+    """The flax tree of a port module's weights, shaped by `init_fn`
+    (a JAX init taking a PRNG key) through jax.eval_shape: no JAX init is
+    run."""
+    from gridmm_tpu_torch.convert import to_flax_tree
+
+    template = jax.eval_shape(init_fn, jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, to_flax_tree(
+        dict(model.named_parameters()), template))
+
+
+def state_dict_np(model):
+    return {k: v.detach().numpy() for k, v in model.state_dict().items()}
+
+
+def assert_state_close(got_sd, want_params, template_model, what,
+                       rel=1e-5):
+    """Every parameter of a port state dict (numpy) within `rel` of the
+    JAX leaf's max (1e-8 floor for analytically zero updates)."""
+    from gridmm_tpu_torch.convert import flax_to_state_dict
+
+    want = flax_to_state_dict(jax.tree.map(np.asarray, want_params),
+                              template_model)
+    bad = {}
+    for k, w in want.items():
+        w = w.numpy()
+        err = np.abs(got_sd[k] - w).max()
+        if not err <= rel * np.abs(w).max() + 1e-8:
+            bad[k] = (float(err), float(np.abs(w).max()))
+    assert not bad, f"{what}: {len(bad)} leaves differ, e.g. " \
+        f"{sorted(bad.items(), key=lambda kv: -kv[1][0])[:3]}"
