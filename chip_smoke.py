@@ -146,14 +146,30 @@ Phases, in order (any failure raises and the exit code is not 0):
       the agent's own time per step) and the CE update's time and peak
       memory; the int8 serving step (graphed create and from_bundle)
       beside the f32 ones; each beside the card; every phase's seconds;
-  (f) the kernels line (every kernel with a `ce` entry: its launches on
+  (f) the entry points, each through its module function at full width
+      with the launch counts set to 0 before it and read after it:
+      cli/bench.run (its JSON line; K1 once, K2 12 and K3 26 times an
+      iteration), cli/bench_latency.run (eager and CUDA-graphed steps at
+      batch 1 and 4), cli/bench_pool_bwd.run (the gradients within phase
+      c's K5 tolerances), cli/bench_train_update.run_one (batch 16 f32,
+      a warm-up and 3 updates: K5a and K5b once a step, K1 twice),
+      cli/bench_ce_step.run (4 envs with the view tower, fused and
+      --legacy), cli/drive_episode.run (EPISODE OK), cli/
+      run_synthetic_eval.run (finite metrics) and entry.entry() (its
+      torch.export program against eager fn); then a backward through
+      each of K2, K3 and K4's custom ops must raise, the clip_b32 and
+      --tiny towers go through torch.export with the eager bits, and
+      `export_serving --int8 --mesh auto` over a world of one (NCCL)
+      serves the bits of phase d's unsharded --int8 bundle (r2r width);
+  (g) the kernels line (every kernel with a `ce` entry: its launches on
       the run_ce path, K4's on the tiny CE agent's, and its times at the
       CE shapes; K1, K2 and K3 with an `int8` entry, the kernels of the
       mesh runs with a `mesh` entry: launches on the one-rank mesh and on
-      each of the two gloo ranks); (g) the result line, last.
+      each of the two gloo ranks; each kernel's launches in phase f's
+      entry points under `entry_points`); (h) the result line, last.
 
 `python3 chip_smoke.py --ce-only` runs (a), (b) and the VLN-CE phases
-alone and prints no result line.
+alone and prints no result line; `--entry-only` runs (a), (b) and (f).
 
 A longer report goes to chiprun_out/chip_smoke_report.json.
 """
@@ -256,6 +272,7 @@ LOGIT_TOL = 1e-4
 # vs live module): equal bits are expected; any difference must stay below
 # 1e-5 of the largest logit
 LOGIT_BITS_TOL = 1e-5
+INT8_BUNDLE = ROOT / "runs" / "chip_smoke" / "int8_bundle"
 BUNDLE_SEED = 11               # weights the bundle serves (exported: seed 0)
 TRAIN_STEPS = 15               # cfg.train.max_action_len: 15 x 588 = 8820
 LOOP_BATCH, LOOP_ITERS = 4, 2  # train_navigator: one teacher, one sample
@@ -1560,6 +1577,54 @@ def compare_grads(got, want, rel, what):
         if scale > floor:
             worst = max(worst, err / scale)
     return worst
+
+
+def noise_leaves(grads):
+    """The leaves whose gradient lies within compare_grads' floor (1e-6 of
+    the largest leaf's max) in every update of `grads`, a list of {name:
+    gradient}: rounding noise, such as a bias added to every logit of a
+    softmax. Adam steps such a leaf by up to ~lr whichever sign the noise
+    takes, so its weights after the update say nothing of the update. A
+    leaf whose gradient is exactly 0 throughout is not among them."""
+    quiet, moved = None, set()
+    for g in grads:
+        floor = 1e-6 * max(t.abs().max().item() for t in g.values())
+        q = {n for n, t in g.items() if t.abs().max().item() <= floor}
+        quiet = q if quiet is None else quiet & q
+        moved |= {n for n, t in g.items() if t.any()}
+    return (quiet or set()) & moved
+
+
+@contextlib.contextmanager
+def recorded_grads(model):
+    """Yields a list to which every optimizer step appends, before it
+    updates, {name: full f32 gradient} of `model`'s parameters (a DTensor
+    gradient is gathered; a parameter without one, which the loss does not
+    reach, has a gradient of zeros: the sharded update fills those in)."""
+    from torch.distributed.tensor import DTensor
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    seen = []
+
+    def hook(optimizer, args, kwargs):
+        snap = {}
+        for name, p in model.named_parameters():
+            g = p.grad
+            if g is None:
+                local = p.to_local() if isinstance(p, DTensor) else p
+                snap[name] = torch.zeros(p.shape, device=local.device)
+                continue
+            g = g.detach()
+            if isinstance(g, DTensor):
+                g = g.full_tensor()
+            snap[name] = g.float().clone()
+        seen.append(snap)
+
+    handle = register_optimizer_step_pre_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
 
 
 def largest_batch(model, cfg, want):
@@ -3074,8 +3139,9 @@ def int8_serving_path(report, cfg, rows, texts, fused_f32):
           f"{INT8_R2R_TOL}); witness: the CPU's int8 step with the image "
           f"features one ulp off moves {r2r_ulp:.3e}")
 
-    # the --int8 bundle: its programs quantize the weights they are given
-    out_dir = ROOT / "runs" / "chip_smoke" / "int8_bundle"
+    # the --int8 bundle: its programs quantize the weights they are given;
+    # phase f holds the sharded --int8 bundle against them, then deletes them
+    out_dir = INT8_BUNDLE
     shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.synchronize()
     t0 = time.time()
@@ -3092,8 +3158,6 @@ def int8_serving_path(report, cfg, rows, texts, fused_f32):
     print(f"  export_serving --int8 at r2r width in {export_s:.1f}s; "
           f"from_bundle vs create, {n_steps} steps: max|diff| "
           f"{bundle_diff:.3e} (equal bits: {bundle_bits})")
-    for p in out_dir.glob("*.pt2"):
-        p.unlink()
     report["int8_serving"] = {
         "steps": n_steps, "launches": launches, "wall_s": wall,
         "cosine_vs_f32_min": worst_cos,
@@ -3166,25 +3230,18 @@ def metrics_lines(path, key):
                                     .splitlines()) if key in rec]
 
 
-def mesh_world1_path(report):
-    """(d) the parallel layer at world size 1 over NCCL, in this process:
-    train_navigator(mesh=...) at r2r width for 2 iterations, `pretrain
-    --mesh auto --preset r2r` for one update and `run_ce --mesh auto
-    --full` for one epoch, each against the same run without a mesh on
-    the same seed (MESH_REL_TOL relative)."""
+def mesh_train_navigator(out):
+    """train_navigator(mesh=...) over NCCL at world size 1, r2r width, 2
+    iterations (teacher, sample) with evaluation, against the same run
+    without a mesh on the same seed: the losses, the best SPL, the first
+    update's gradients and the weights after, MESH_REL_TOL relative.
+    Returns the meshed run's launches."""
     import torch.distributed as dist
 
     from gridmm_tpu_torch.config import MeshConfig
     from gridmm_tpu_torch.parallel.mesh import init_world, make_mesh
+    from gridmm_tpu_torch.utils.logging import MetricLogger
 
-    out = {}
-    total = {k.name: 0 for k in KERNELS}
-
-    def add(c):
-        for k, v in c.items():
-            total[k] += v
-
-    # train_navigator, 2 iterations (teacher, sample) with evaluation
     cfg = dataclasses.replace(r2r_config(), train=dataclasses.replace(
         r2r_config().train, batch_size=LOOP_BATCH))
     runs = {}
@@ -3193,8 +3250,6 @@ def mesh_world1_path(report):
         agent, val_agent = synthetic_agents(model, cfg, LOOP_BATCH)
         log_dir = ROOT / "runs" / "chip_smoke" / f"mesh_loop_{meshed}"
         shutil.rmtree(log_dir, ignore_errors=True)
-        from gridmm_tpu_torch.utils.logging import MetricLogger
-
         logger = MetricLogger(str(log_dir))
         created = init_world("cuda") if meshed else False
         try:
@@ -3207,47 +3262,85 @@ def mesh_world1_path(report):
                         f"{backend}, not NCCL")
             reset_counts()
             t0 = time.perf_counter()
-            res = train_navigator(cfg, model, agent, val_agent,
-                                  iters=LOOP_ITERS, log_every=1,
-                                  eval_batches=1, seed=0, logger=logger,
-                                  mesh=mesh)
+            with recorded_grads(model) as grads:
+                res = train_navigator(cfg, model, agent, val_agent,
+                                      iters=LOOP_ITERS, log_every=1,
+                                      eval_batches=1, seed=0, logger=logger,
+                                      mesh=mesh)
             torch.cuda.synchronize()
             out[f"train_navigator_s_{'mesh' if meshed else 'plain'}"] = (
                 time.perf_counter() - t0)
             if meshed:
-                add(counts())
-                out["train_navigator_launches"] = counts()
+                launches = counts()
         finally:
             logger.close()
             if created:
                 dist.destroy_process_group()
         runs[meshed] = (metrics_lines(log_dir / "metrics.jsonl",
-                                      "train/loss"), res, model.state_dict())
+                                      "train/loss"), res, model.state_dict(),
+                        grads)
         del agent, val_agent
-    (l0, r0, s0), (l1, r1, s1) = runs[False], runs[True]
+    (l0, r0, s0, g0), (l1, r1, s1, g1) = runs[False], runs[True]
     require(len(l0) == LOOP_ITERS and all(rel_close(a, b, MESH_REL_TOL)
                                           for a, b in zip(l1, l0)),
             f"train_navigator with a mesh: losses {l1} against {l0}")
     require(r1.best_spl == r0.best_spl, f"best SPL {r1.best_spl} against "
             f"{r0.best_spl}")
-    # every leaf within MESH_REL_TOL of its max, over a floor of 1e-6 of the
-    # largest leaf's max: the key biases, whose gradient is zero
-    # analytically, hold ~1e-8 of rounding noise that Adam moves by ~1e-7
-    worst = compare_grads(s1, s0, MESH_REL_TOL,
-                          "train_navigator with a mesh: weights")
+    require(len(g0) == len(g1) == LOOP_ITERS,
+            f"{len(g1)} and {len(g0)} optimizer steps, not {LOOP_ITERS}")
+    # the first update's gradients: every leaf within MESH_REL_TOL of its
+    # max, over a floor of 1e-6 of the largest leaf's max. Its forward is
+    # the same in both runs (the losses agree to the bit); the second's
+    # runs on weights that differ by rounding, so a ReLU input at zero may
+    # switch and add one term to a gradient: its loss and the weights after
+    # hold it
+    grad_worst = compare_grads(g1[0], g0[0], MESH_REL_TOL,
+                               "train_navigator with a mesh: gradients of "
+                               "the first update")
+    # the weights after the two updates, likewise, but for the leaves whose
+    # gradient was rounding noise in every update of the run without a
+    # mesh (the key biases, and the biases of the global action head's last
+    # two layers, which add the same to every logit of its softmax): Adam
+    # steps those by up to ~lr on the noise's sign, which K5a's atomics set
+    # anew in each run, so their gradients above hold them
+    quiet = noise_leaves(g0)
+    worst = compare_grads({k: v for k, v in s1.items() if k not in quiet},
+                          {k: v for k, v in s0.items() if k not in quiet},
+                          MESH_REL_TOL, "train_navigator with a mesh: weights")
     for n in ("grid_pool_fwd", "grid_pool_bwd1", "grid_pool_bwd2"):
-        require(out["train_navigator_launches"][n] > 0,
-                f"{n} did not launch under the mesh")
+        require(launches[n] > 0, f"{n} did not launch under the mesh")
     print(f"  train_navigator(mesh=(1, 1) over NCCL), r2r width, "
           f"{LOOP_ITERS} iterations: losses {l1} against {l0} without; "
-          f"every leaf within {MESH_REL_TOL} of its max plus 1e-6 of the "
-          f"largest leaf's max (worst ratio over the leaves above that "
-          f"floor {worst:.2e}); launches {out['train_navigator_launches']}; "
-          f"{out['train_navigator_s_mesh']:.2f}s against "
+          f"every leaf of the first update's gradients and of the weights "
+          f"after within {MESH_REL_TOL} of its max plus 1e-6 of the largest "
+          f"leaf's max (worst ratio over the leaves above that floor: "
+          f"gradients {grad_worst:.2e}, weights {worst:.2e}; {len(quiet)} "
+          f"leaves with a rounding-noise gradient held by their gradients "
+          f"alone: {sorted(quiet)}); launches "
+          f"{launches}; {out['train_navigator_s_mesh']:.2f}s against "
           f"{out['train_navigator_s_plain']:.2f}s without")
+    out["train_navigator_launches"] = launches
     out["train_navigator"] = {"losses": l1, "plain_losses": l0,
-                              "weights_worst_rel": worst}
-    del runs, s0, s1
+                              "grads_worst_rel": grad_worst,
+                              "weights_worst_rel": worst,
+                              "noise_leaves": sorted(quiet)}
+    return launches
+
+
+def mesh_world1_path(report):
+    """(d) the parallel layer at world size 1 over NCCL, in this process:
+    train_navigator(mesh=...) at r2r width for 2 iterations, `pretrain
+    --mesh auto --preset r2r` for one update and `run_ce --mesh auto
+    --full` for one epoch, each against the same run without a mesh on
+    the same seed (MESH_REL_TOL relative)."""
+    out = {}
+    total = {k.name: 0 for k in KERNELS}
+
+    def add(c):
+        for k, v in c.items():
+            total[k] += v
+
+    add(mesh_train_navigator(out))
 
     # pretrain --mesh auto --preset r2r, one update and its validation
     runs = {}
@@ -3426,12 +3519,316 @@ def two_rank_dp_path(report):
     return ranks
 
 
+# ------------------------------------------------- (f) the entry points
+# phase (c)'s K5 tolerances, relative to each gradient's max: K5a's d_fts
+# (one product per element) and K5b's d_weights (f32 atomics in S)
+POOL_BWD_DG_TOL, POOL_BWD_DW_TOL = 1e-5, 1e-4
+ENTRY_UPDATES = 3                 # bench_train_update's timed updates here
+ENTRY_CE_ROUNDS, ENTRY_CE_STEPS = 2, 6
+ENTRY_LATENCY_STEPS = 20
+ENTRY_POOL_ITERS = 10             # bench_pool_bwd's timed calls here (30)
+
+
+def entry_point_run(report, name, fn, dev_name):
+    """Launch counts set to 0, fn() run, the counts read: (fn's result,
+    the launches, seconds)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    res = fn()
+    torch.cuda.synchronize()
+    launches = counts()
+    wall = time.time() - t0
+    print(f"  {name}: {wall:.1f}s, launches {launches} [{dev_name}]")
+    report["entry_points"][name] = {"launches": launches, "s": wall}
+    return res, launches
+
+
+def require_launched(launches, names, what):
+    for n in names:
+        require(launches[n] > 0, f"{what}: {n} did not launch")
+
+
+def encoder_ops_refuse_backward(report):
+    """The encoder kernels' ops on the card: each of K2, K3 and K4 through
+    its dispatching function with inputs that need a gradient gives an
+    output with a grad_fn, whose backward raises naming the op."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=dtype).requires_grad_(True)
+
+    cases = (("attention_qkv_fwd", lambda: ATT.attention_qkv(
+                 t(4, 50, 2304), 12)),
+             ("attention_fwd", lambda: ATT.attention(
+                 *(t(16, 50, 16, dtype=torch.float32) for _ in range(3)))),
+             ("layernorm_fwd", lambda: LN.layernorm(
+                 t(200, 768), t(768, dtype=torch.float32),
+                 t(768, dtype=torch.float32))))
+    out = {}
+    for name, call in cases:
+        before = counts()[name]
+        y = call()
+        require(counts()[name] == before + 1, f"{name} did not launch")
+        require(y.grad_fn is not None, f"{name}: no grad_fn on the card")
+        try:
+            y.float().sum().backward()
+        except RuntimeError as e:
+            require(f"gridmm.{name}" in str(e), f"{name}: {e}")
+            out[name] = str(e).splitlines()[0]
+        else:
+            raise AssertionError(f"a backward through {name} did not raise")
+    print(f"  a backward through each encoder op raises: {out}")
+    report["entry_points"]["backward_raises"] = out
+
+
+def export_tower(tower, x, kernels):
+    """torch.export of a tower on the card, its program run on x against
+    the eager tower: (equal bits, the program's launches of `kernels`)."""
+    with torch.no_grad():
+        eager = tower(x)
+        program = torch.export.export(tower, (x,))
+        torch.cuda.synchronize()
+        before = counts()
+        got = program.module()(x)
+        torch.cuda.synchronize()
+    after = counts()
+    targets = {str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"}
+    for k in kernels:
+        require(f"gridmm.{k}.default" in targets,
+                f"the exported tower does not call gridmm::{k}")
+    return torch.equal(got, eager), {k: after[k] - before[k]
+                                     for k in kernels}
+
+
+def exported_towers(report):
+    """The encoder towers exported on the card: the clip_b32 tower (bf16;
+    K2, K3) and the --tiny tower (head_dim 16; K4, K3) through
+    torch.export; each program gives the eager tower's bits, one launch
+    per layer and op."""
+    clip = init_clip_vision(clip_b32(), seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    u8 = torch.from_numpy(rng.integers(0, 256, (PIPE_PANOS * VIEWS, 224,
+                                               224, 3)).astype(np.uint8))
+    x = clip_mod.normalize_images(u8.cuda())
+    bits, launches = export_tower(clip, x, ("attention_qkv_fwd",
+                                            "layernorm_fwd"))
+    require(bits, "the exported clip_b32 tower's tokens differ from eager")
+    require(launches == {"attention_qkv_fwd": 12, "layernorm_fwd": 26},
+            f"exported clip_b32 tower launches {launches}")
+    tiny = ClipVisionConfig(input_resolution=224, patch_size=32, width=64,
+                            layers=1, heads=4, compute_dtype="float32")
+    bits_t, launches_t = export_tower(init_clip_vision(tiny, seed=5,
+                                                       device="cuda"),
+                                      x[:24], ("attention_fwd",
+                                               "layernorm_fwd"))
+    require(bits_t, "the exported tiny tower's tokens differ from eager")
+    require(launches_t["attention_fwd"] == 1,
+            f"exported tiny tower launches {launches_t}")
+    print(f"  torch.export on the card: clip_b32 bf16 over "
+          f"{PIPE_PANOS * VIEWS} views, launches {launches}, equal bits; "
+          f"tiny tower over 24 views, launches {launches_t}, equal bits")
+    report["entry_points"]["exported_towers"] = {
+        "clip_b32": launches, "tiny": launches_t}
+
+
+def int8_mesh_bundle(report):
+    """int8 serving over a mesh on the card: `export_serving --int8 --mesh
+    auto` over a world of one (NCCL) at r2r width and 4 slots, against the
+    unsharded `--int8` bundle that phase (d) exported (exported here where
+    phase d did not run, as under --entry-only). Both are served by
+    from_bundle on the same seeded weights, the sharded one on that world,
+    eager both (the absmax MAXes are NCCL all-reduces over the groups of
+    one): equal bits over 3 steps."""
+    import io
+
+    import torch.distributed as dist
+
+    from gridmm_tpu_torch.config import MeshConfig
+    from gridmm_tpu_torch.parallel.mesh import init_world, make_mesh
+
+    cfg8 = int8_cfg(r2r_config())
+    root = ROOT / "runs" / "chip_smoke" / "int8_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--config", "r2r", "--int8", "--batch", str(SERVE_SLOTS),
+              "--device", "cuda"]
+    t0 = time.time()
+    # the CLI prints its manifest, every parameter's placement included
+    with contextlib.redirect_stdout(io.StringIO()):
+        if not any(INT8_BUNDLE.glob("*.pt2")):
+            shutil.rmtree(INT8_BUNDLE, ignore_errors=True)
+            export_cli_mod.main(common + ["--out_dir", str(INT8_BUNDLE)])
+        man = export_cli_mod.main(common + ["--mesh", "auto", "--out_dir",
+                                            str(root)])
+    export_s = time.time() - t0
+    require(man["int8"] is True and man["mesh"]["data"] == 1,
+            f"the sharded int8 manifest: {man.get('mesh')}")
+    sd = dict(init_navigator(cfg8.model, seed=BUNDLE_SEED,
+                             device="cuda").state_dict())
+    rng = np.random.default_rng(4)
+    steps = [{s: step_row(cfg8, rng, t) for s in range(SERVE_SLOTS)}
+             for t in range(3)]
+    texts = [request_text(cfg8, rng) for _ in range(SERVE_SLOTS)]
+
+    def serve(d):
+        eng = NavServingEngine.from_bundle(str(d), cfg8, sd, SERVE_SLOTS,
+                                           cuda_graph=False)
+        for r, (ids, m) in enumerate(texts):
+            eng.submit(r, ids, m)
+        eng.admit()
+        return [eng.step(x).fused_logits for x in steps]
+
+    one = serve(INT8_BUNDLE)
+    require(init_world("cuda"), "a process group was already up")
+    try:
+        mesh = make_mesh(MeshConfig(), "cuda")
+        backend = dist.get_backend(mesh.get_group(0))
+        require(backend == "nccl", f"the mesh runs {backend}, not NCCL")
+        meshed = serve(root)
+    finally:
+        dist.destroy_process_group()
+    diff, bits = compare_logits(meshed, one, "int8 sharded vs unsharded")
+    require(bits, f"int8 bundle over a mesh of one: max|diff| {diff:.3e}, "
+            f"not the unsharded bundle's bits")
+    for d in (root, INT8_BUNDLE):
+        for p in d.rglob("*.pt2"):
+            p.unlink()
+    print(f"  export_serving --int8 --mesh auto (world of one, NCCL), r2r "
+          f"width, {SERVE_SLOTS} slots: serves the unsharded --int8 "
+          f"bundle's bits over 3 steps (export {export_s:.1f}s)")
+    report["entry_points"]["int8_mesh"] = {"equal_bits": bits,
+                                           "export_s": export_s}
+
+
+def entry_points_phase(report, dev_name, pipeline_views_per_s=None):
+    """(f) each entry point of the port on the card at full width through
+    its module function, with the launch counts set to 0 before it and
+    read after it; then the encoder kernels' ops and int8 serving over a
+    mesh. Returns the launches of each entry point."""
+    from gridmm_tpu_torch import entry as entry_mod
+    from gridmm_tpu_torch.cli import bench as bench_mod
+    from gridmm_tpu_torch.cli import bench_ce_step as bench_ce_mod
+    from gridmm_tpu_torch.cli import bench_latency as latency_mod
+    from gridmm_tpu_torch.cli import bench_pool_bwd as pool_bwd_mod
+    from gridmm_tpu_torch.cli import bench_train_update as update_mod
+    from gridmm_tpu_torch.cli import drive_episode as drive_mod
+    from gridmm_tpu_torch.cli import run_synthetic_eval as eval_mod
+
+    report["entry_points"] = {}
+    rec, la = entry_point_run(report, "bench", bench_mod.run, dev_name)
+    print(f"  {json.dumps(rec)}")
+    require(rec["value"] > 0 and rec["vs_baseline"] is None
+            and rec["backend"] == "cuda", f"bench: {rec}")
+    fills = r2r_config().grid.max_steps - 1 + 20
+    require(la["grid_pool_fwd"] == fills
+            and la["attention_qkv_fwd"] == 12 * fills
+            and la["layernorm_fwd"] == 26 * fills,
+            f"bench: launches {la} in {fills} iterations")
+    report["entry_points"]["bench"]["record"] = rec
+    if pipeline_views_per_s:
+        print(f"  bench {rec['value']:.1f} views/s against phase (e)'s "
+              f"pipeline {pipeline_views_per_s:.1f} (ratio "
+              f"{rec['value'] / pipeline_views_per_s:.3f})")
+
+    lat, la = entry_point_run(report, "bench_latency", lambda: latency_mod.run(
+        steps=ENTRY_LATENCY_STEPS), dev_name)
+    require_launched(la, ("grid_pool_fwd",), "bench_latency")
+    report["entry_points"]["bench_latency"]["p50_p90_ms"] = {
+        str(b): v for b, v in lat.items()}
+
+    pool, la = entry_point_run(report, "bench_pool_bwd", lambda:
+                               pool_bwd_mod.run(iters=ENTRY_POOL_ITERS),
+                               dev_name)
+    require_launched(la, ("grid_pool_fwd", "grid_pool_bwd1",
+                          "grid_pool_bwd2"), "bench_pool_bwd")
+    for shape, r in pool.items():
+        require(r["rel_grad_err"]["d_fts"] < POOL_BWD_DG_TOL
+                and r["rel_grad_err"]["d_weights"] < POOL_BWD_DW_TOL,
+                f"bench_pool_bwd {shape}: gradients {r['rel_grad_err']}")
+    report["entry_points"]["bench_pool_bwd"]["results"] = {
+        str(k): v for k, v in pool.items()}
+
+    upd, la = entry_point_run(
+        report, "bench_train_update", lambda: update_mod.run_one(
+            16, "float32", iters=ENTRY_UPDATES, device="cuda"), dev_name)
+    n = (ENTRY_UPDATES + 1) * TRAIN_STEPS
+    require(la["grid_pool_bwd1"] == la["grid_pool_bwd2"] == n
+            and la["grid_pool_fwd"] == 2 * n,
+            f"bench_train_update: launches {la} in {ENTRY_UPDATES + 1} "
+            f"updates of {TRAIN_STEPS} steps")
+    require(math.isfinite(upd["loss"]), f"bench_train_update: {upd}")
+    report["entry_points"]["bench_train_update"]["result"] = upd
+
+    # one full CE agent with the view tower for both paths (the first run
+    # builds it)
+    agent = [None]
+
+    def ce_run(legacy):
+        if agent[0] is None:
+            agent[0] = build_ce_agent(img=224, tiny=False, view_tower=True,
+                                      device="cuda")[1]
+        return bench_ce_mod.run(batches=(CE_ENVS,), steps=ENTRY_CE_STEPS,
+                                rounds=ENTRY_CE_ROUNDS, legacy=legacy,
+                                agent=agent[0])
+
+    for legacy in (False, True):
+        name = "bench_ce_step" + (" --legacy" if legacy else "")
+        ce, la = entry_point_run(report, name, lambda: ce_run(legacy),
+                                 dev_name)
+        require_launched(la, ("grid_pool_fwd", "attention_qkv_fwd",
+                              "layernorm_fwd"), name)
+        report["entry_points"][name]["result"] = ce[CE_ENVS]
+    del agent
+
+    ep, la = entry_point_run(report, "drive_episode", drive_mod.run,
+                             dev_name)
+    require(la["grid_pool_fwd"] == 4 and len(ep["steps"]) == 3,
+            f"drive_episode: launches {la}")
+
+    (avg, preds), la = entry_point_run(
+        report, "run_synthetic_eval", eval_mod.run, dev_name)
+    require(all(math.isfinite(avg[k]) for k in eval_mod.METRICS)
+            and len(preds) == 9, f"run_synthetic_eval: {avg}")
+    require_launched(la, ("grid_pool_fwd",), "run_synthetic_eval")
+    report["entry_points"]["run_synthetic_eval"]["metrics"] = {
+        k: avg[k] for k in eval_mod.METRICS}
+
+    def entry_check():
+        fn, args = entry_mod.entry("cuda")
+        with torch.no_grad():
+            eager = fn(*args)
+            got = entry_mod.compile_check(fn, args).module()(*args)
+        return eager, got
+
+    (eager, got), la = entry_point_run(report, "entry", entry_check,
+                                       dev_name)
+    diff, bits = compare_logits([got], [eager], "entry() exported vs eager")
+    require(la["grid_pool_fwd"] == 2, f"entry(): launches {la}")
+    print(f"  entry(): fused_logits {tuple(eager.shape)}, the exported "
+          f"program against eager fn max|diff| {diff:.3e} (equal bits: "
+          f"{bits})")
+    report["entry_points"]["entry"].update(max_abs_diff=diff,
+                                           equal_bits=bits)
+    for check in (encoder_ops_refuse_backward, exported_towers,
+                  int8_mesh_bundle):
+        t0 = time.time()
+        check(report)
+        print(f"    {check.__name__}: {time.time() - t0:.1f}s")
+    return {k: v["launches"] for k, v in report["entry_points"].items()
+            if isinstance(v, dict) and "launches" in v}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # --ce-only: (a), (b) and the VLN-CE phases alone, for iterating on
     # that path; it prints no result line
     ce_only = argv == ["--ce-only"]
-    require(not argv or ce_only, f"unknown arguments {argv}")
+    # --entry-only: (a), (b) and the entry points' phase (f) alone, for
+    # iterating on that phase; it prints no result line
+    entry_only = argv == ["--entry-only"]
+    require(not argv or ce_only or entry_only, f"unknown arguments {argv}")
     # (a) device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3473,6 +3870,18 @@ def main(argv=None) -> int:
         print(f"card: {dev_name}")
         print(json.dumps({"ce": {k.name: report[k.name]["ce"]
                                  for k in KERNELS}}))
+        return 0
+    if entry_only:
+        t_phase = time.time()
+        print("(f) the entry points")
+        entry_points_phase(report, dev_name)
+        phase_s["f"] = time.time() - t_phase
+        print(f"    phase (f): {phase_s['f']:.1f}s")
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_entry_report.json").write_text(
+            json.dumps(report, indent=1, default=str))
+        print(f"card: {dev_name}")
         return 0
 
     # (c) kernels vs plain versions
@@ -3651,6 +4060,23 @@ def main(argv=None) -> int:
           f"[{dev_name}]")
     phase_s["e"] = time.time() - t_phase
     print(f"    phase (e): {phase_s['e']:.1f}s")
+
+    # (f) the entry points, on the card memory the earlier phases held
+    del live, eager, served, eng8, served8, ex, clip_model, eng
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    print("(f) the entry points: bench, bench_latency, bench_pool_bwd, "
+          "bench_train_update, bench_ce_step, drive_episode, "
+          "run_synthetic_eval, entry(); the encoder kernels' ops; int8 "
+          "over a mesh")
+    entry_launches = entry_points_phase(
+        report, dev_name, report["throughput"]["pipeline_views_per_s"])
+    phase_s["f"] = time.time() - t_phase
+    print(f"    phase (f): {phase_s['f']:.1f}s")
+    for k in KERNELS:
+        report[k.name]["entry_points"] = {
+            name: n[k.name] for name, n in entry_launches.items()
+            if n[k.name]}
     print("(d, last) a serving step that cannot be captured")
     report["bundle"]["failed_capture"] = check_failed_capture(cfg)
     report["phase_s"] = phase_s
@@ -3659,13 +4085,14 @@ def main(argv=None) -> int:
     (out_dir / "chip_smoke_report.json").write_text(
         json.dumps(report, indent=1))
 
-    # (f) kernels line, (g) result line
+    # (g) kernels line, (h) result line
     print(f"card: {dev_name}")
     print(json.dumps({"kernels": [
         {key: report[k.name][key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "pretrain", "ce", "int8", "mesh") if key in report[k.name]}
+            "pretrain", "ce", "int8", "mesh", "entry_points")
+            if key in report[k.name]}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,7 +57,8 @@ def parse_args(argv=None):
     p.add_argument("--int8", action="store_true",
                    help="int8 trunk matmuls (ModelConfig.int8_matmuls): the "
                         "programs quantize the f32 weights they are given "
-                        "at every call")
+                        "at every call (with --mesh, with the absmax of "
+                        "the whole batch and the whole weight row)")
     p.add_argument("--navigator_ckpt", default=None,
                    help="released torch checkpoint (grid_map/finetune "
                         "format); supersedes --resume")
@@ -76,11 +77,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh and args.int8:
-        # one absmax over the whole batch sets an int8 activation scale; a
-        # rank's program would take it over its share of the batch
-        raise ValueError("--int8 bundles are exported on one device; drop "
-                         "--mesh")
     import torch.distributed as dist
 
     from gridmm_tpu_torch.parallel.mesh import init_world

@@ -22,7 +22,7 @@ from torch import nn
 from gridmm_tpu_torch.config import ModelConfig
 from gridmm_tpu_torch.ops.masking import attn_bias_from_mask
 from gridmm_tpu_torch.ops.quant import int8_dense_q, quantize_per_channel
-from gridmm_tpu_torch.parallel.tp import TensorParallel
+from gridmm_tpu_torch.parallel.tp import TensorParallel, all_max
 
 
 def gelu_erf(x):
@@ -82,7 +82,15 @@ class Int8Dense(Dense):
     persistent (the `state_dict` is `Dense`'s) and rebuilt when the weight
     is another tensor or was written since (`_version`). A weight given in
     place of the parameter (`torch.func.functional_call`, the exported
-    programs) is quantized in the call."""
+    programs) is quantized in the call.
+
+    Over a mesh (the sharded serving bundle), `batch_group` is the process
+    group that splits the batch (set by parallel/mesh.set_int8_batch_group):
+    the activation's absmax is a MAX over it. A row-parallel layer (`tp`)
+    also takes both absmaxes over `model` and sums its int32 products
+    there before the rescale (parallel/tp.py)."""
+
+    batch_group: Optional[object] = None
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32, bias: bool = True):
@@ -91,21 +99,46 @@ class Int8Dense(Dense):
         self.register_buffer("weight_scale", None, persistent=False)
         self._cache_key = None
 
+    def _row_group(self):
+        """The `model` group where this layer splits its input, else None."""
+        tp = self.tp
+        return tp.group if tp is not None and tp.kind == "row" else None
+
     def quantized(self):
         """(int8 weight (out, in), f32 scale (out,))."""
         w = self.weight
+        amax = _max_over([self._row_group()])
         if not isinstance(w, nn.Parameter) or torch.compiler.is_compiling():
-            return quantize_per_channel(w)
+            return quantize_per_channel(w, amax)
         key = (w.data_ptr(), w.device, w._version)
         if key != self._cache_key:
             with torch.no_grad():
-                self.weight_q, self.weight_scale = quantize_per_channel(w)
+                self.weight_q, self.weight_scale = quantize_per_channel(
+                    w, amax)
             self._cache_key = key
         return self.weight_q, self.weight_scale
 
     def forward(self, x):
         wq, scale = self.quantized()
-        return int8_dense_q(x, wq, scale, self.bias)
+        row = self._row_group()
+        return int8_dense_q(x, wq, scale, self.bias,
+                            _max_over([self.batch_group, row]),
+                            None if row is None else self.tp.reduce_from)
+
+
+def _max_over(groups):
+    """A MAX over each of the process groups given (None: none), or None
+    where there is none to take."""
+    groups = [g for g in groups if g is not None]
+    if not groups:
+        return None
+
+    def amax(t):
+        for g in groups:
+            t = all_max(t, g)
+        return t
+
+    return amax
 
 
 def dense(in_features: int, out_features: int, cfg: ModelConfig) -> Dense:

@@ -16,6 +16,14 @@ accumulators) and f32 inputs on the CUDA cores; the per-head kernel takes
 any head_dim from 1 to 256. Both kernels keep scores
 and softmax in f32 on chip, so `scores_f32` (the JAX `attn_scores_f32` knob,
 which trades score precision for bytes moved) only changes the plain version.
+
+On the card each kernel is reached through a custom op,
+`gridmm::attention_qkv_fwd` and `gridmm::attention_fwd`, whose fake bodies
+give `torch.export` and `torch.compile` the output's shape and type. The ops
+have no autograd formula (neither have the Pallas kernels): a backward
+through them raises instead of dropping the gradient. A CPU tensor calls
+the plain version directly, which differentiates as the JAX tower's einsum
+path does.
 """
 
 from __future__ import annotations
@@ -75,24 +83,65 @@ def attention_plain(q, k, v):
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
+@torch.library.custom_op("gridmm::attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """The per-head attention as the custom op `gridmm::attention_fwd`: the
+    plain version on the CPU, the kernel (ops/cuda/attention.ATTENTION_FWD,
+    which counts each launch) on the card."""
+    return attention_plain(q, k, v)
+
+
+@attention_fwd_op.register_kernel("cuda")
+def _attention_fwd_cuda(q, k, v):
+    from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_FWD
+
+    return ATTENTION_FWD(q, k, v)
+
+
+@attention_fwd_op.register_fake
+def _attention_fwd_fake(q, k, v):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("gridmm::attention_qkv_fwd", mutates_args=(),
+                         device_types="cpu")
+def attention_qkv_fwd_op(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """The packed-qkv attention as the custom op `gridmm::attention_qkv_fwd`:
+    the plain version on the CPU, the kernel
+    (ops/cuda/attention.ATTENTION_QKV_FWD) on the card."""
+    return attention_qkv_plain(qkv, heads)
+
+
+@attention_qkv_fwd_op.register_kernel("cuda")
+def _attention_qkv_fwd_cuda(qkv, heads):
+    from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_QKV_FWD
+
+    return ATTENTION_QKV_FWD(qkv, heads)
+
+
+@attention_qkv_fwd_op.register_fake
+def _attention_qkv_fwd_fake(qkv, heads):
+    b, length, w3 = qkv.shape
+    return qkv.new_empty((b, length, w3 // 3))
+
+
 def attention(q, k, v):
     """Dispatching (BH, L, hd) attention: the per-head kernel on the card,
     the plain version on the CPU."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_FWD
-
-    return ATTENTION_FWD(q, k, v)
+    return attention_fwd_op(q, k, v)
 
 
 def attention_qkv(qkv, heads: int, scores_f32: bool = True):
     """Dispatching packed-qkv attention (see the module docstring)."""
     if qkv.device.type == "cpu":
         return attention_qkv_plain(qkv, heads, scores_f32)
-    from gridmm_tpu_torch.ops.cuda.attention import (ATTENTION_QKV_FWD,
-                                                     QKV_HEAD_DIM)
+    from gridmm_tpu_torch.ops.cuda.attention import QKV_HEAD_DIM
 
     qkv = qkv.contiguous()
     if qkv.shape[-1] == 3 * heads * QKV_HEAD_DIM:
-        return ATTENTION_QKV_FWD(qkv, heads)
+        return attention_qkv_fwd_op(qkv, heads)
     return merge_heads(attention(*split_heads(qkv, heads)), qkv.shape[0])

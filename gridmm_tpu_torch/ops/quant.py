@@ -13,11 +13,17 @@ for batch, never row for row.
 
 Weights are in the torch layout (out, in); the flax kernel is (in, out), so
 the per-channel absmax runs over dim 1 here where JAX takes axis 0.
+
+Over a mesh (the sharded serving bundle), a rank holds part of the
+activation or of the weight's `in` dim. Each absmax is then a MAX over
+the ranks that hold the other parts (`amax`, given by
+models/layers.Int8Dense), so every rank quantizes with the scales of the
+whole tensors, as the JAX program does under GSPMD.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,10 +38,19 @@ def _over_127(t: torch.Tensor) -> torch.Tensor:
     return t / torch.full((), 127.0, dtype=t.dtype, device=t.device)
 
 
-def quantize_per_channel(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, in) float weight -> (int8 weight (out, in), f32 scale (out,))."""
+# a MAX over the ranks that hold the rest of a tensor (parallel/tp.all_max
+# over the right groups), or None where the rank holds all of it
+Amax = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def quantize_per_channel(w: torch.Tensor, amax: Amax = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, in) float weight -> (int8 weight (out, in), f32 scale (out,)).
+    `amax` completes each row's absmax where the rank holds part of `in`."""
     w = w.float()
     absmax = w.abs().amax(dim=1, keepdim=True)
+    if amax is not None:
+        absmax = amax(absmax)
     scale = _over_127(torch.clamp(absmax, min=1e-8))
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale.reshape(-1)
@@ -61,17 +76,26 @@ def _int_mm(xq: torch.Tensor, wq_t: torch.Tensor) -> torch.Tensor:
 
 
 def int8_dense_q(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
-                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 bias: Optional[torch.Tensor] = None, amax: Amax = None,
+                 acc_sum: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                 = None) -> torch.Tensor:
     """y = x @ W.T + bias with W given quantized (`quantize_per_channel`):
     x (..., in) float; the result in x's dtype. The activation scale stays a
     device tensor (no host sync), so the call can be captured in a CUDA
-    graph."""
+    graph. Over a mesh, `amax` completes the activation's absmax and
+    `acc_sum` sums the int32 products of a rank's part of `in` with the
+    other ranks' (before the rescale and the bias)."""
     in_dtype = x.dtype
     xf = x.float()
-    x_scale = _over_127(torch.clamp(xf.abs().amax(), min=1e-8))
+    x_absmax = xf.abs().amax()
+    if amax is not None:
+        x_absmax = amax(x_absmax)
+    x_scale = _over_127(torch.clamp(x_absmax, min=1e-8))
     xq = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
     lead = xq.shape[:-1]
     acc = _int_mm(xq.reshape(-1, xq.shape[-1]), wq.t())
+    if acc_sum is not None:
+        acc = acc_sum(acc)
     y = acc.float() * (x_scale * w_scale)
     if bias is not None:
         y = y + bias.float()

@@ -216,6 +216,16 @@ def set_tp_roles(model: nn.Module, pls: Dict[str, Placement], group,
                     f"the model axis size {mp}")
 
 
+def set_int8_batch_group(model: nn.Module, group) -> None:
+    """Give every int8 layer (models/layers.Int8Dense) the process group
+    that splits the batch, over which it takes its activation's absmax."""
+    from gridmm_tpu_torch.models.layers import Int8Dense
+
+    for mod in model.modules():
+        if isinstance(mod, Int8Dense):
+            mod.batch_group = group
+
+
 # ------------------------------------------------------------ the world
 def init_world(device: str = "cuda", multihost: bool = False) -> bool:
     """Join the launched world if there is none yet: from the environment
@@ -320,8 +330,12 @@ class ShardedParams:
         from gridmm_tpu_torch.models.layers import Int8Dense
 
         if any(isinstance(m, Int8Dense) for m in model.modules()):
-            raise ValueError("int8_matmuls is a serving path; the parallel "
-                             "layer shards training and f32 serving only")
+            # an update through round() has no gradient; the int8 trunk is
+            # sharded for serving by utils/export.py
+            raise ValueError("int8_matmuls is a serving path: export it "
+                             "over a mesh with export_serving --int8 "
+                             "--mesh auto; the parallel layer's updates "
+                             "and rollouts shard f32 only")
         self.model, self.mesh, self.fsdp = model, mesh, fsdp
         self.dp, self.mp = mesh_shape(mesh)
         self.dp_rank = mesh.get_local_rank(0)

@@ -25,6 +25,14 @@ Without autograd (rollouts, evaluation, serving) the forward sums run as
 functional collectives (`torch.distributed._functional_collectives`),
 which `torch.export` traces into a program: the sharded serving bundle
 (utils/export.py) carries them.
+
+An int8 layer (models/layers.Int8Dense) takes the absmax of its whole
+activation and of each weight row, which GSPMD reduces across the devices
+in the JAX program: here they are MAX all-reduces (`all_max`), the
+activation's over the group that splits the batch and, in a row-parallel
+layer, over `model` too, where the weight row's is taken as well. A
+row-parallel layer sums its int32 products over `model` before it
+rescales them, so the sum is exact.
 """
 
 from __future__ import annotations
@@ -81,6 +89,12 @@ class _GatherLast(torch.autograd.Function):
     def backward(ctx, g):
         lo = ctx.rank * ctx.width
         return g[..., lo:lo + ctx.width].contiguous(), None, None, None
+
+
+def all_max(x, group):
+    """x's elementwise max over the group, as a functional collective (no
+    autograd; `torch.export` traces it)."""
+    return funcol.wait_tensor(funcol.all_reduce(x, "max", group))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -36,8 +36,8 @@ records both.
 programs per rank of a (data, model) mesh (`<name>_r<rank>.pt2`), each
 over the rank's share of the batch and its shards of the parameters (the
 parallel/mesh.py rules), with the tensor-parallel sums (and, with fsdp,
-the all-gathers over `data`) inside the program as functional
-collectives. The manifest records the mesh, each parameter's placement
+the all-gathers over `data`; with int8, the absmax MAXes) inside the
+program as functional collectives. The manifest records the mesh, each parameter's placement
 and the collectives' process-group names; `from_bundle` runs such a
 bundle on every rank of the same mesh, and raises under any other.
 """
@@ -207,7 +207,9 @@ def export_navigator_serving_sharded(model, cfg, state_dict, mesh,
     import torch.distributed._functional_collectives as funcol
 
     from gridmm_tpu_torch.parallel.mesh import (local_slice, mesh_shape,
-                                                placements, set_tp_roles)
+                                                placements,
+                                                set_int8_batch_group,
+                                                set_tp_roles)
     from gridmm_tpu_torch.serve.engine import serving_cfg
 
     dp, mp = mesh_shape(mesh)
@@ -223,6 +225,8 @@ def export_navigator_serving_sharded(model, cfg, state_dict, mesh,
     pls = placements(served, dp, mp, fsdp)
     if mp > 1:
         set_tp_roles(served, pls, model_group, mp, mp_rank)
+    # int8 (an int8 config): each activation's absmax over the whole batch
+    set_int8_batch_group(served, data_group)
     params = {k: local_slice(v, pls[k], dp, mp, dp_rank, mp_rank)
               if k in pls else v for k, v in state_dict.items()}
     gathered = {k: pl[0] for k, pl in pls.items()

@@ -741,3 +741,86 @@ def test_ce_device_step_on_card_matches_cpu():
             torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5, msg=f)
         else:
             assert torch.equal(a, c), f
+
+
+def _encoder_op_inputs(name, dtype):
+    """Card inputs of K2, K3 or K4 at a tower's shapes, with the dispatching
+    function that reaches the kernel's op and the kernel's launcher."""
+    from gridmm_tpu_torch.ops import attention as A
+    from gridmm_tpu_torch.ops import layernorm as LN
+    from gridmm_tpu_torch.ops.cuda.attention import (ATTENTION_FWD,
+                                                     ATTENTION_QKV_FWD)
+    from gridmm_tpu_torch.ops.cuda.layernorm import LAYERNORM_FWD
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def t(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    if name == "attention_qkv_fwd":     # clip_b32: 12 heads of 64, L = 50
+        return (A.attention_qkv, (t(4, 50, 2304), 12), ATTENTION_QKV_FWD,
+                torch.ops.gridmm.attention_qkv_fwd.default)
+    if name == "attention_fwd":         # the tiny tower: head_dim 16
+        return (A.attention, (t(16, 50, 16), t(16, 50, 16), t(16, 50, 16)),
+                ATTENTION_FWD, torch.ops.gridmm.attention_fwd.default)
+    return (LN.layernorm, (t(200, 768), t(768).float(), t(768).float(),
+                           1e-5),
+            LAYERNORM_FWD, torch.ops.gridmm.layernorm_fwd.default)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["attention_qkv_fwd", "attention_fwd",
+                                  "layernorm_fwd"])
+def test_encoder_kernel_ops_refuse_a_backward_and_fake_their_outputs(
+        name, dtype):
+    """K2, K4 and K3 run as the custom ops `gridmm::<name>` on the card: one
+    launch a call; with inputs that need a gradient the output carries a
+    grad_fn whose backward raises (no formula is registered) instead of
+    dropping the gradient; the op's fake body gives the kernel's shape,
+    dtype and device."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    _require_card()
+    fn, args, launcher, op = _encoder_op_inputs(name, dtype)
+    before = launcher.launches
+    want = fn(*args)
+    torch.cuda.synchronize()
+    assert launcher.launches == before + 1
+    grad_args = [a.clone().requires_grad_(True)
+                 if isinstance(a, torch.Tensor) else a for a in args]
+    out = fn(*grad_args)
+    assert out.requires_grad and out.grad_fn is not None
+    with pytest.raises(RuntimeError, match="no autograd formula"):
+        out.float().sum().backward()
+    assert torch.equal(out.detach(), want)
+    with FakeTensorMode() as mode:
+        fake = op(*[mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                    for a in args])
+    assert (fake.shape, fake.dtype, fake.device) == \
+        (want.shape, want.dtype, want.device)
+    assert launcher.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_tiny_tower_exports_on_the_card_with_eager_bits():
+    """The --tiny preprocess tower (head_dim 16: K4, K3) goes through
+    torch.export on the card and its program gives the eager tower's
+    bits."""
+    from gridmm_tpu_torch.models.clip_vit import (ClipVisionConfig,
+                                                  init_clip_vision)
+    from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_FWD
+
+    _require_card()
+    cfg = ClipVisionConfig(input_resolution=56, patch_size=8, width=64,
+                           layers=2, heads=4, compute_dtype="float32")
+    tower = init_clip_vision(cfg, seed=0, device="cuda")
+    x = torch.randn((6, 56, 56, 3), device="cuda")
+    with torch.no_grad():
+        eager = tower(x)
+        program = torch.export.export(tower, (x,))
+        before = ATTENTION_FWD.launches
+        got = program.module()(x)
+    torch.cuda.synchronize()
+    assert ATTENTION_FWD.launches == before + cfg.layers
+    assert torch.equal(got, eager)

@@ -71,6 +71,56 @@ def test_grid_pool_op_passes_opcheck(dtype):
     assert torch.isneginf(cmax[1]).all() and not mask[1].any()
 
 
+def _encoder_op_case(name, dtype):
+    """(op, args, plain version) of K2, K3 or K4's custom op on CPU inputs."""
+    from gridmm_tpu_torch.ops import attention as TA
+    from gridmm_tpu_torch.ops import layernorm as TL
+
+    rng = np.random.default_rng(1)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=dtype)
+
+    if name == "attention_qkv_fwd":
+        return (torch.ops.gridmm.attention_qkv_fwd.default, (t(2, 17, 384), 2),
+                TA.attention_qkv_plain)
+    if name == "attention_fwd":
+        return (torch.ops.gridmm.attention_fwd.default,
+                (t(6, 17, 16), t(6, 17, 16), t(6, 17, 16)),
+                TA.attention_plain)
+    return (torch.ops.gridmm.layernorm_fwd.default,
+            (t(5, 40), t(40).float(), t(40).float(), 1e-5),
+            TL.layernorm_plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["attention_qkv_fwd", "attention_fwd",
+                                  "layernorm_fwd"])
+def test_encoder_ops_pass_opcheck_and_refuse_a_backward(name, dtype):
+    """K2, K3 and K4 as the custom ops `gridmm::<name>`: opcheck passes
+    (schema, fake body against the CPU body, export tracing), the CPU body
+    is the plain version's bits, and a backward through the op raises where
+    the kernels' wrappers used to drop the gradient. The dispatching
+    functions keep the plain, differentiable version on the CPU."""
+    from gridmm_tpu_torch.ops import attention as TA
+    from gridmm_tpu_torch.ops import layernorm as TL
+
+    op, args, plain = _encoder_op_case(name, dtype)
+    torch.library.opcheck(op, args)
+    assert torch.equal(op(*args), plain(*args))
+    grad_args = [a.clone().requires_grad_(True)
+                 if isinstance(a, torch.Tensor) else a for a in args]
+    out = op(*grad_args)
+    assert out.requires_grad
+    with pytest.raises(RuntimeError, match="no autograd formula"):
+        out.float().sum().backward()
+    dispatch = {"attention_qkv_fwd": TA.attention_qkv,
+                "attention_fwd": TA.attention,
+                "layernorm_fwd": TL.layernorm}[name]
+    dispatch(*grad_args).float().sum().backward()
+    assert grad_args[0].grad is not None
+
+
 @pytest.fixture(scope="module")
 def bundle(tmp_path_factory):
     """A tiny bundle exported at BATCH rows from seed-0 weights."""

@@ -115,7 +115,7 @@ def test_export_serving_mesh_auto_over_a_world_of_one(tmp_path, capsys,
     """`export_serving --mesh auto` in a world of one (torchrun's
     environment): rank 0's programs, the mesh in the manifest, and a
     from_bundle engine over the same world that gives the live engine's
-    logits; --int8 with --mesh raises."""
+    logits; --int8 with --mesh exports too."""
     import torch.distributed as dist
 
     from gridmm_tpu_torch.config import MeshConfig
@@ -135,9 +135,11 @@ def test_export_serving_mesh_auto_over_a_world_of_one(tmp_path, capsys,
         == man
     assert (man["mesh"]["data"], man["mesh"]["model"]) == (1, 1)
     assert (out / "nav_step_r0.pt2").exists() and not dist.is_initialized()
-    with pytest.raises(ValueError, match="--int8"):
-        TEXP.main(["--tiny", "--int8", "--mesh", "auto", "--out_dir",
-                   str(tmp_path / "c")])
+    man8 = TEXP.main(["--tiny", "--int8", "--device", "cpu", "--mesh",
+                      "auto", "--batch", "2", "--max_action_len", "2",
+                      "--out_dir", str(tmp_path / "c")])
+    assert man8["int8"] is True and man8["mesh"]["data"] == 1
+    assert (tmp_path / "c" / "nav_step_r0.pt2").exists()
     jcfg = JC.tiny_config()
     tcfg = port_config(jcfg)
     import dataclasses

@@ -243,3 +243,51 @@ def sharded_bundle_case(rank, world, out_dirs, texts, rows, steps):
                      "slots": eng.batch}
     torch.distributed.barrier()
     return out
+
+
+def int8_sharded_bundle_case(rank, world, out_dir, sd, texts, rows, steps,
+                             mp_size):
+    """Export the tiny int8 navigator's serving programs over a
+    (world / mp_size, mp_size) mesh at batch len(texts), from the full
+    state dict `sd` (numpy), serve them with from_bundle on this rank's
+    data shard of the requests and return each step's outputs (numpy)
+    with the rows they belong to."""
+    import dataclasses
+
+    import torch
+
+    from gridmm_tpu_torch.config import tiny_config
+    from gridmm_tpu_torch.models.navigator import GridMMNavigator
+    from gridmm_tpu_torch.parallel.mesh import data_rank
+    from gridmm_tpu_torch.serve.engine import NavServingEngine
+    from gridmm_tpu_torch.utils.export import (
+        export_navigator_serving_sharded, save_serving_bundle)
+
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, int8_matmuls=True))
+    mesh = _mesh(mp_size)
+    model = GridMMNavigator(cfg.model).eval()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    b = len(texts)
+    exports, entry = export_navigator_serving_sharded(
+        model, cfg, model.state_dict(), mesh, batch=b, device="cpu")
+    save_serving_bundle(exports, out_dir, cfg=cfg,
+                        extra_manifest={"batch": b, "int8": True,
+                                        "mesh": entry},
+                        rank=rank, world=world)
+    eng = NavServingEngine.from_bundle(out_dir, cfg, dict(model.state_dict()),
+                                       b, device="cpu")
+    local = b // mesh.size(0)
+    mine = list(range(data_rank(mesh) * local, (data_rank(mesh) + 1) * local))
+    for slot, r in enumerate(mine):
+        eng.submit(slot, *texts[r])
+    eng.admit()
+    got = []
+    for s in range(steps):
+        o = eng.step({slot: rows[r][s] for slot, r in enumerate(mine)})
+        got.append({f: getattr(o, f).numpy() for f in
+                    ("global_logits", "local_logits", "fused_logits",
+                     "grid_logits")})
+    torch.distributed.barrier()
+    return {"rows": mine, "steps": got}
