@@ -4,6 +4,8 @@ pretraining update's time goes on the card (gridmm_tpu_torch).
 
     python3 chip_profile.py [--steps 5]
     python3 chip_profile.py --ab OTHER_TREE
+    python3 chip_profile.py --changing-ops
+    python3 chip_profile.py --k1-shapes
 
 Builds the full-width R2R navigator (seeded random weights) and, for an
 eager 4-slot serving engine and then one whose step is a CUDA graph, fills
@@ -36,14 +38,34 @@ the point buffers with 15 steps, then:
 The encode's and the pipeline's tables are followed by LayerNorm's launches
 and device time per launch.
 
-With --ab, it only times LayerNorm (K3), per-head attention (K4) and the
-pool backward's two passes (K5a, K5b) as built from this tree's csrc/ and from OTHER_TREE's (a checkout
-of another commit, for example the parent unpacked with `git archive`) in
-one process, on the same inputs, in turns (other, this, this, other), at the
-main paths' shapes, reading from device memory.
+With --ab, it only times the pool forward (K1), LayerNorm (K3), per-head
+attention (K4) and the pool backward's two passes (K5a, K5b) as built from
+this tree's csrc/ and from OTHER_TREE's (a checkout of another commit, for
+example the parent unpacked with `git archive`) in one process, on the
+same inputs, in turns (other, this, this, other), at the main paths'
+shapes, reading from device memory. K1 runs on each main path's own
+inputs (every K1 launch of one run of the path, recorded: serving,
+pipeline, train, pretrain, CE), on the last serving step's buffer, and on
+random cells at the five paths' shapes and a skewed serving buffer. The
+pool kernels' C entry points differ between trees whose K1 splits a row
+over a cluster and the trees before them (K1 takes its row split and
+chunk, K5a its scratch and tile count); each tree is called with its own.
+
+With --k1-shapes, it only times the pool forward over its launch shapes
+(blocks a row is dealt to x cells a block) on each main path's own inputs
+and on an even and a skewed buffer at the serving shape, and then builds
+of K1 that differ in one place each (K1_VARIANTS: the register caps, a
+cluster of one block for unsplit rows) on the paths' inputs: the tables
+the wrapper's choice (`fwd_launch_shape`) and the caps were made from.
+--k1-shapes and --ab may be given together; the paths then run once.
+
+With --changing-ops, it only runs one train loss and its backward three
+times on the same inputs and names the operators whose outputs change from
+run to run on the same inputs (`changing_ops`).
 
 Needs one NVIDIA card; writes the tables to chiprun_out/chip_profile.txt
-(chip_profile_ab.json with --ab).
+(chip_profile_ab.json with --ab, chip_profile_changing_ops.json with
+--changing-ops, chip_profile_k1_shapes.json with --k1-shapes).
 """
 
 from __future__ import annotations
@@ -58,8 +80,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (CE_SEED, CE_STEPS, CLIP_BATCH, PIPE_PANOS,
-                        SERVE_SLOTS, VIEWS, ce_env,
+from chip_smoke import (CE_ENVS, CE_N, CE_SEED, CE_STEPS, CLIP_BATCH,
+                        FIRST_STEPS, LATER_STEPS, PIPE_PANOS, PRETRAIN_B,
+                        PRETRAIN_N, PRETRAIN_S, SERVE_SLOTS, TRAIN_STEPS,
+                        VIEWS, ce_env, run_engine,
                         attn_atol, bwd_inputs, card, copies_for, cuda_ms,
                         pipeline_inputs, pool_case, request_text, require,
                         rotating_ms, step_row)
@@ -76,7 +100,11 @@ from gridmm_tpu_torch.ops import attention as ATT
 from gridmm_tpu_torch.ops.cuda import build
 from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_FWD
 from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
-                                                 GRID_POOL_BWD2, SOURCE_BWD)
+                                                 GRID_POOL_BWD2,
+                                                 GRID_POOL_FWD, GridPoolFwd,
+                                                 SOURCE,
+                                                 MAX_CHUNK, SOURCE_BWD,
+                                                 bwd_tiles, fwd_launch_shape)
 from gridmm_tpu_torch.ops.cuda.layernorm import LAYERNORM_FWD
 from gridmm_tpu_torch.serve.engine import NavServingEngine
 from gridmm_tpu_torch.utils.export import (export_navigator_serving,
@@ -182,6 +210,144 @@ def kernel_diff(model, cfg, dev_name, out):
     out.append(text)
 
 
+def recorded_pool_inputs(run) -> list:
+    """Runs `run()` and returns the inputs of every K1 launch it made, in
+    order: (features, cell ids, weights, num_cells), cloned."""
+    got = []
+
+    def launch(g, cells, w, pooled, mask, denom, cmax, shape=None):
+        got.append((g.clone(), cells.clone(), w.clone(), cmax.shape[1]))
+        GridPoolFwd.launch(GRID_POOL_FWD, g, cells, w, pooled, mask, denom,
+                           cmax, shape=shape)
+
+    GRID_POOL_FWD.launch = launch
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        del GRID_POOL_FWD.launch
+    return got
+
+
+def main_path_pool_inputs(dev_name: str) -> dict:
+    """{path: the inputs of every K1 launch of one run of it}, each path run
+    as chip_smoke.py drives it, on seeded random weights: serving (a 4-slot
+    eager engine at r2r_config() width, 6 requests x 18 steps), pipeline
+    (clip_b32 bf16, encode_and_pool over 16 panoramas x 15 iterations),
+    train (one make_train_step update, 16 x 15, f32), pretrain (one update
+    of each task, 8 x 21, the 12,416-point buffer) and CE (a recorded batch
+    of 4 envs x 20 steps and one CE update, r2r_ce width with the view
+    tower). Their cells come from the grid assignment of each step's depth
+    and pose, but pretraining's, which its synthetic batch draws at
+    random."""
+    cfg = r2r_config()
+    paths = {}
+    rng = np.random.default_rng(0)
+    n_req = SERVE_SLOTS + 2
+    texts = [request_text(cfg, rng) for _ in range(n_req)]
+    rows = [[step_row(cfg, rng, t) for t in range(FIRST_STEPS + LATER_STEPS)]
+            for _ in range(n_req)]
+    model = init_navigator(cfg.model, seed=0, device="cuda")
+    paths["serving"] = recorded_pool_inputs(
+        lambda: run_engine(model, cfg, rows, texts, cuda_graph=False))
+    del model
+
+    ex = ClipFeatureExtractor(clip_b32(), device="cuda")
+    images, steps, heads, state = pipeline_inputs(cfg, PIPE_PANOS,
+                                                  torch.bfloat16)
+
+    def pipeline(state=state):
+        for depth, pos, heading in steps:
+            state = encode_and_pool(ex.model, images, state, depth, pos,
+                                    heading, heads["txt"], heads["text_proj"],
+                                    heads["grid_proj"], cfg.grid).state
+
+    paths["pipeline"] = recorded_pool_inputs(pipeline)
+    del ex, images, steps, heads, state
+
+    model = init_navigator(cfg.model, seed=1, device="cuda")
+    model.eval()
+    train_state = create_train_state(cfg, model)
+    batch = synthetic_trajectory_batch(cfg, cfg.train.batch_size,
+                                       TRAIN_STEPS, seed=0, device="cuda")
+    paths["train"] = recorded_pool_inputs(
+        lambda: make_train_step(cfg)(train_state, batch, seed=0))
+    del model, train_state, batch
+
+    pcfg = pretrain_cli._resolve_config(
+        pretrain_cli.parse_args(["--preset", "r2r"]))
+    model = init_pretrain_params(pcfg.model, seed=1, device="cuda")
+    model.eval()
+    state = create_train_state(pcfg, model)
+    batch = synthetic_pretrain_batch(pcfg, PRETRAIN_B, PRETRAIN_S, seed=0,
+                                     device="cuda")
+    paths["pretrain"] = recorded_pool_inputs(lambda: [
+        make_pretrain_step(pcfg, task)(state, batch)
+        for task in ("mlm", "mrc", "sap")])
+    del model, state, batch
+
+    cfg, agent = build_ce_agent(tiny=False, view_tower=True, seed=CE_SEED,
+                                device="cuda")
+    trainer = CETrainer(cfg, agent)
+
+    def ce():
+        with agent.inference():
+            raw = trainer.record_batch(ce_env(6), CE_STEPS,
+                                       np.random.default_rng(0),
+                                       trainer.ss_ratio(0))
+        batch = batch_to_device(raw, "cuda")
+        batch = batch._replace(steps=batch.steps._replace(
+            patch_fts=batch.steps.patch_fts.clone()))
+        trainer.update(batch, seed=0, dropout=False)
+
+    paths["CE"] = recorded_pool_inputs(ce)
+    del cfg, agent, trainer
+    torch.cuda.empty_cache()
+    for label, caps in paths.items():
+        g, cells, _, nc = caps[-1]
+        filled = [int((c >= 0).sum()) for _, c, _, _ in caps]
+        print(f"  K1 inputs of the {label} path: {len(caps)} launches at "
+              f"{tuple(g.shape)} {str(g.dtype)[6:]}, {nc} cells, valid "
+              f"points a launch {min(filled)}-{max(filled)} [{dev_name}]")
+    return paths
+
+
+def k1_outputs(caps) -> dict:
+    """Output tensors for each (B, num_cells, D) among `caps`."""
+    outs = {}
+    for g, _, _, nc in caps:
+        b, _, d = g.shape
+        if (b, nc, d) not in outs:
+            outs[b, nc, d] = (
+                torch.empty((b, nc, d), device="cuda"),
+                torch.empty((b, nc), dtype=torch.bool, device="cuda"),
+                torch.empty((b, 256), device="cuda"),
+                torch.empty((b, nc), device="cuda"))
+    return outs
+
+
+def k1_launch(fn, g, cells, w, nc, outs, shape):
+    """One launch of a build of K1 (its C function `fn`); `shape` is the
+    tail of its arguments before the stream: (group, row_split, chunk), or
+    (group,) for a build before the row split."""
+    b, n, d = g.shape
+    err = fn(g.data_ptr(), 0 if g.dtype == torch.float32 else 1,
+             cells.data_ptr(), w.data_ptr(),
+             *(t.data_ptr() for t in outs[b, nc, d]), b, n, d, nc, *shape,
+             torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"grid_pool_fwd launch failed: cudaError {err}")
+
+
+def synthetic_pool_inputs() -> dict:
+    """Buffers no path makes, at the serving shape (B=4, N=8832, D=768
+    f32): cells drawn evenly, and 90% of row 0 in one cell."""
+    return {name: [pool_case(kind, SERVE_SLOTS, torch.float32, seed=5)
+                   + (196,)]
+            for name, kind in (("serving shape, cells even", "random"),
+                               ("serving shape, 90% of row 0 in one cell",
+                                "skew"))}
+
+
 def attn_args(tensors, code, bh, length, hd):
     """The C arguments of gridmm_attention_fwd but the stream."""
     q, k, v, o = tensors
@@ -189,22 +355,37 @@ def attn_args(tensors, code, bh, length, hd):
             length, hd, 1.0 / hd ** 0.5)
 
 
-def ab_kernels(other_root: Path, dev_name: str) -> dict:
-    """K3, K4, K5a and K5b from this tree's csrc/ and from `other_root`'s, on the
-    same inputs, timed in turns (other, this, this, other). Both trees must
-    export the same C entry points. Returns {case: {tree: [ms, ms]}}."""
+def ab_kernels(other_root: Path, dev_name: str,
+               paths: dict) -> dict:
+    """K1, K3, K4, K5a and K5b from this tree's csrc/ and from `other_root`'s,
+    on the same inputs, timed in turns (other, this, this, other). Both
+    trees must export the same C entry points (the pool kernels' of either
+    generation). Returns {case: {tree: [ms, ms]}}."""
     trees = {"other": other_root / "gridmm_tpu_torch" / "csrc",
              "this": build.SRC_DIR}
+    # a tree whose K1 splits rows: K1 takes (group, row_split, chunk), K5a its
+    # partials, its row counts and its tile count
+    split_rows = {tree: "row_split" in (src / f"{SOURCE}.cu").read_text()
+                  for tree, src in trees.items()}
     fns = {}
     for tree, src in trees.items():
-        build.build_all(["layernorm_fwd", SOURCE_BWD, "attention_fwd"], src)
+        build.build_all([SOURCE, "layernorm_fwd", SOURCE_BWD,
+                         "attention_fwd"], src)
+        fwd_args = GRID_POOL_FWD.argtypes
+        if not split_rows[tree]:     # (..., group, stream)
+            fwd_args = fwd_args[:-3] + fwd_args[-1:]
+        bwd1_args = GRID_POOL_BWD1.argtypes
+        if not split_rows[tree]:     # (..., S, b, n, d, cells, blocks, stream)
+            bwd1_args = bwd1_args[:10] + bwd1_args[12:]
         fns[tree] = {
+            "fwd": build.function(SOURCE, GRID_POOL_FWD.symbol, fwd_args,
+                                  src),
             "attn": build.function("attention_fwd", ATTENTION_FWD.symbol,
                                    ATTENTION_FWD.argtypes, src),
             "ln": build.function("layernorm_fwd", LAYERNORM_FWD.symbol,
                                  LAYERNORM_FWD.argtypes, src),
             "bwd1": build.function(SOURCE_BWD, GRID_POOL_BWD1.symbol,
-                                   GRID_POOL_BWD1.argtypes, src),
+                                   bwd1_args, src),
             "bwd2": build.function(SOURCE_BWD, GRID_POOL_BWD2.symbol,
                                    GRID_POOL_BWD2.argtypes, src)}
     stream = torch.cuda.current_stream().cuda_stream
@@ -222,6 +403,54 @@ def ab_kernels(other_root: Path, dev_name: str) -> dict:
         print(f"  {case}: other {got['other'][0]:.5f} / "
               f"{got['other'][1]:.5f} ms, this {got['this'][0]:.5f} / "
               f"{got['this'][1]:.5f} ms [{dev_name}]")
+
+    # K1 on the main paths' own inputs (a run of each path: every launch
+    # in turn), on the last serving step's buffer, and on synthetic buffers
+    # at the main paths' shapes, each tree with its own launch shape (the
+    # parent's: `group` cells a block, a block a row)
+    cases = {f"{label} path, its {len(caps)} launches": caps
+             for label, caps in paths.items()}
+    cases["serving, the last step's buffer"] = paths["serving"][-1:]
+    for label, b, n, dtype, filled in (
+            ("serving shape, cells even", SERVE_SLOTS, 8832, torch.float32,
+             8832),
+            ("pipeline shape", PIPE_PANOS, 8832, torch.bfloat16, 8832),
+            ("train shape", 16, TRAIN_STEPS * 588, torch.float32, 8820),
+            ("pretrain shape", PRETRAIN_B, PRETRAIN_N, torch.float32,
+             PRETRAIN_S * 588),
+            ("CE shape", CE_ENVS, CE_N, torch.float32, CE_STEPS * 588),
+            ("serving shape, 90% of row 0 in one cell", SERVE_SLOTS, 8832,
+             torch.float32, 8832)):
+        g, cells, w = pool_case("skew" if "90%" in label else "random", b,
+                                dtype, seed=5, n=n)
+        cells[:, filled:] = -1
+        cases[f"{label}, random cells"] = [(g, cells, w, 196)]
+    for label, caps in cases.items():
+        outs = k1_outputs(caps)
+
+        def fwd(tree, caps=caps, outs=outs):
+            for g, cells, w, nc in caps:
+                b, n, _ = g.shape
+                if split_rows[tree]:
+                    shape = fwd_launch_shape(b, n, nc)
+                else:
+                    shape = (max(1, min(4, -(-b * nc // 1024))),)
+                k1_launch(fns[tree]["fwd"], g, cells, w, nc, outs, shape)
+
+        pooled = {}
+        for tree in trees:
+            fwd(tree)
+            pooled[tree] = next(iter(outs.values()))[0].clone()
+        torch.testing.assert_close(pooled["this"], pooled["other"],
+                                   rtol=1e-5, atol=1e-5 * pooled[
+                                       "other"].abs().max().item())
+        g = caps[0][0]
+        turns(f"grid_pool_fwd {label} {tuple(g.shape)} {str(g.dtype)[6:]}",
+              lambda tree: cuda_ms(lambda: fwd(tree),
+                                   iters=max(3, 25 // len(caps)),
+                                   warmup=1))
+        del outs, pooled
+    del cases
 
     rng = np.random.default_rng(5)
     for rows, c, dtype in ((9600, 768, torch.bfloat16),
@@ -304,13 +533,21 @@ def ab_kernels(other_root: Path, dev_name: str) -> dict:
     s_pt = torch.empty((b, n), device="cuda")
     big_s = torch.zeros((b, 256), device="cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = bwd_tiles(b, n, sms)
+    partial = torch.empty((b * tiles, 256), device="cuda")
+    done = torch.zeros((b,), dtype=torch.int32, device="cuda")
 
     def pass1(tree):
-        big_s.zero_()
-        run(fns[tree]["bwd1"], g.data_ptr(), 0, cells.data_ptr(),
-            w.data_ptr(), cmax.data_ptr(), denom.data_ptr(), cot.data_ptr(),
-            dg.data_ptr(), s_pt.data_ptr(), big_s.data_ptr(), b, n, d, 196,
-            sms * 32)
+        head = (g.data_ptr(), 0, cells.data_ptr(), w.data_ptr(),
+                cmax.data_ptr(), denom.data_ptr(), cot.data_ptr(),
+                dg.data_ptr(), s_pt.data_ptr(), big_s.data_ptr())
+        if split_rows[tree]:     # S written in full; the row counts zeroed
+            done.zero_()
+            run(fns[tree]["bwd1"], *head, partial.data_ptr(),
+                done.data_ptr(), b, n, d, 196, tiles)
+        else:                    # S zero-filled, atomics; a grid of blocks
+            big_s.zero_()
+            run(fns[tree]["bwd1"], *head, b, n, d, 196, sms * 32)
 
     def pass2(tree, cells, w, cmax, denom, big_s, s_pt, dw):
         run(fns[tree]["bwd2"], cells.data_ptr(), w.data_ptr(),
@@ -345,6 +582,186 @@ def ab_kernels(other_root: Path, dev_name: str) -> dict:
           f"{result['launch floor (a one-element torch.add)']:.5f} ms "
           f"[{dev_name}]")
     return result
+
+
+def checksums(tree):
+    """Order-free checksums of the bits of every CUDA tensor in `tree`: the
+    sum of its 32-bit words (bytes where a word does not fit)."""
+    from torch.utils._pytree import tree_leaves
+
+    out = []
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor) and t.is_cuda and t.numel():
+            t = t.detach().contiguous()
+            if t.element_size() == 4:
+                t = t.view(torch.int32)
+            elif t.dtype != torch.int64:
+                t = t.view(torch.uint8)
+            out.append(int(t.sum(dtype=torch.int64).item()))
+    return tuple(out)
+
+
+def changing_ops(dev_name: str, runs: int = 3) -> dict:
+    """Which operators of one train loss and its backward (r2r width, 8
+    trajectories x 15 steps, chip_smoke's GRAD_SEED weights, dropout off)
+    give other bits from run to run: the loss runs `runs` times under a
+    dispatch mode that checksums every operator's inputs and outputs, and an
+    operator counts where run 1 and a later run fed it the same inputs and
+    got other outputs (allocations, whose contents are undefined, aside).
+    Returns {operator: {"calls": n, "shapes": input shapes}}."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from chip_smoke import GRAD_SEED, loss_and_grads
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.log = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            before = checksums((args, kwargs))
+            out = func(*args, **kwargs)
+            shapes = [tuple(t.shape) for t in tree_leaves(args)
+                      if isinstance(t, torch.Tensor)]
+            self.log.append((str(func), before, checksums(out), shapes))
+            return out
+
+    cfg = r2r_config()
+    model = init_navigator(cfg.model, seed=GRAD_SEED, device="cuda")
+    model.eval()
+    batch = synthetic_trajectory_batch(cfg, 8, TRAIN_STEPS, seed=0,
+                                       device="cuda")
+    logs = []
+    for _ in range(runs):
+        with Recorder() as rec:
+            loss_and_grads(model, cfg, batch)
+        logs.append(rec.log)
+    found = {}
+    for other in logs[1:]:
+        for (name, before, after, shapes), (name2, before2, after2, _) in zip(
+                logs[0], other):
+            require(name == name2, "the runs dispatched other operators")
+            if ("empty" in name or before != before2 or after == after2):
+                continue
+            entry = found.setdefault(name, {"calls": 0, "shapes": shapes})
+            entry["calls"] += 1
+    print(f"  operators of a train loss and its backward whose outputs change "
+          f"from run to run on the same inputs ({runs} runs, "
+          f"{len(logs[0])} operator calls a run): {found} [{dev_name}]")
+    return found
+
+
+def k1_launch_shapes(dev_name: str, paths: dict) -> dict:
+    """K1 over launch shapes (row_split x group, a block's share in one
+    chunk) on each main path's own inputs (a run of the path: every launch
+    in turn) and on the synthetic buffers at the serving shape;
+    `fwd_launch_shape`'s choice marked. Returns {case: {"rs/group": ms}}."""
+    out = {}
+    for label, caps in {**paths, **synthetic_pool_inputs()}.items():
+        outs = k1_outputs(caps)
+        g0, _, _, nc0 = caps[0]
+        chosen = fwd_launch_shape(g0.shape[0], g0.shape[1], nc0)
+        row = {}
+        for rs in (1, 2, 3, 4, 6, 8):
+            for group in (1, 2, 4):
+                def run(rs=rs, group=group):
+                    for g, cells, w, nc in caps:
+                        n = g.shape[1]
+                        share = -(-n // 32 // rs) * 32 if rs > 1 else n
+                        k1_launch(GRID_POOL_FWD._function(), g, cells, w,
+                                  nc, outs, (group, rs,
+                                             min(MAX_CHUNK, share)))
+                mark = "*" if (group, rs) == chosen[:2] else ""
+                row[f"{rs}/{group}{mark}"] = cuda_ms(
+                    run, iters=max(3, 25 // len(caps)), warmup=1)
+        out[label] = row
+        best = min(row, key=row.get)
+        print(f"  K1 {label}, {len(caps)} launches at {tuple(g0.shape)} "
+              f"{str(g0.dtype)[6:]}, ms by row_split/group (* the wrapper's "
+              f"choice {chosen}; fastest {best}): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+              + f" [{dev_name}]")
+    return out
+
+
+# builds of K1 that differ from this tree's in one place each: the
+# register cap of a lone block (the blocks an SM must hold: 3 or 2 where
+# this tree takes 3 only where the shared memory lets an SM hold three) and
+# of a cluster's (2 where this tree takes 3), and the cluster path taking
+# unsplit rows too (a cluster of one block: one finishing path)
+_LONE_CAP = ("  if (kSmemPerSm / (fwd_smem<T, kVec>(d, group, chunk) + kStaticSmem "
+             "+\n                    kSmemPerBlock) >= 3) {")
+_SPLIT_ONLY = ("  if (rsplit > 1) {\n    return launch_kernel<T, kVec, true, "
+               "kClusterMinBlocks>(")
+K1_VARIANTS = {
+    "as built": (),
+    "lone block min blocks 3": ((_LONE_CAP, "  if (true) {"),),
+    "lone block min blocks 2": ((_LONE_CAP, "  if (false) {"),),
+    "cluster min blocks 2": ((
+        "constexpr int kClusterMinBlocks = 3;",
+        "constexpr int kClusterMinBlocks = 2;"),),
+    "cluster of 1 for unsplit rows": ((
+        _SPLIT_ONLY, _SPLIT_ONLY.replace("rsplit > 1", "rsplit >= 1")),),
+}
+
+
+def k1_variants(dev_name: str, paths: dict) -> dict:
+    """Each build of K1_VARIANTS (its source written under the git-ignored
+    build directory) on each main path's own inputs, at the wrapper's
+    launch shape and unsplit with 1, 2 and 4 cells a block, builds in
+    turns. Returns {case: {shape: {variant: ms}}}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    text = (build.SRC_DIR / f"{SOURCE}.cu").read_text()
+    dirs = {}
+    for i, (name, edits) in enumerate(K1_VARIANTS.items()):
+        src = text
+        for old, new in edits:
+            require(old in src, f"variant {name}: {old!r} not in the source")
+            src = src.replace(old, new)
+        dirs[name] = build.BUILD_DIR / "variants" / f"v{i}"
+        dirs[name].mkdir(parents=True, exist_ok=True)
+        (dirs[name] / f"{SOURCE}.cu").write_text(src)
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        list(pool.map(lambda d: build.build_all([SOURCE], d), dirs.values()))
+    fns = {name: build.function(SOURCE, GRID_POOL_FWD.symbol,
+                                GRID_POOL_FWD.argtypes, d)
+           for name, d in dirs.items()}
+    out = {}
+    for label, caps in paths.items():
+        outs = k1_outputs(caps)
+        g0, _, _, nc0 = caps[0]
+        b, n, _ = g0.shape
+        shapes = {"wrapper's": fwd_launch_shape(b, n, nc0)}
+        for group in (1, 2, 4):
+            shapes[f"1/{group}"] = (group, 1, min(MAX_CHUNK, n))
+        out[label] = {}
+        for sname, shape in shapes.items():
+            def run(fn, shape=shape):
+                for g, cells, w, nc in caps:
+                    k1_launch(fn, g, cells, w, nc, outs, shape)
+
+            got = {}
+            for name, fn in fns.items():
+                run(fn)
+                got[name] = next(iter(outs.values()))[0].clone()
+            for name in fns:
+                torch.testing.assert_close(got[name], got["as built"],
+                                           rtol=1e-5, atol=1e-6)
+            ms = {name: [] for name in fns}
+            for order in (list(fns), list(fns)[::-1]):
+                for name in order:
+                    ms[name].append(cuda_ms(lambda: run(fns[name]),
+                                            iters=max(3, 25 // len(caps)),
+                                            warmup=1))
+            out[label][f"{sname} {shape}"] = ms
+            print(f"  K1 {label}, {len(caps)} launches, shape {sname} "
+                  f"{shape}, ms by build (two turns): "
+                  + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}"
+                              for k, v in ms.items()) + f" [{dev_name}]")
+    return out
 
 
 def ce_profile(out):
@@ -415,9 +832,15 @@ def ce_profile(out):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--k1-shapes", action="store_true",
+                    help="only time K1 over its launch shapes and builds "
+                         "on the main paths' inputs")
+    ap.add_argument("--changing-ops", action="store_true",
+                    help="only name the operators of a train loss whose "
+                         "outputs change from run to run")
     ap.add_argument("--ab", type=Path, default=None, metavar="OTHER_TREE",
-                    help="only time K3, K4, K5a and K5b against OTHER_TREE's "
-                         "sources")
+                    help="only time K1, K3, K4, K5a and K5b against "
+                         "OTHER_TREE's sources")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -428,11 +851,23 @@ def main() -> int:
     print(f"card: {dev_name}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    if args.ab is not None:
-        result = ab_kernels(args.ab.resolve(), dev_name)
-        (out_dir / "chip_profile_ab.json").write_text(json.dumps(
-            {"card": dev_name, "other": str(args.ab), "ms": result},
-            indent=1))
+    if args.changing_ops:
+        found = changing_ops(dev_name)
+        (out_dir / "chip_profile_changing_ops.json").write_text(json.dumps(
+            {"card": dev_name, "operators": found}, indent=1))
+        return 0
+    if args.k1_shapes or args.ab is not None:
+        paths = main_path_pool_inputs(dev_name)
+        if args.k1_shapes:
+            found = {"shapes": k1_launch_shapes(dev_name, paths),
+                     "builds": k1_variants(dev_name, paths)}
+            (out_dir / "chip_profile_k1_shapes.json").write_text(json.dumps(
+                {"card": dev_name, "ms": found}, indent=1))
+        if args.ab is not None:
+            result = ab_kernels(args.ab.resolve(), dev_name, paths)
+            (out_dir / "chip_profile_ab.json").write_text(json.dumps(
+                {"card": dev_name, "other": str(args.ab), "ms": result},
+                indent=1))
         return 0
     cfg = r2r_config()
     model = init_navigator(cfg.model, seed=0, device="cuda")

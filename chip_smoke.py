@@ -19,7 +19,11 @@ Phases, in order (any failure raises and the exit code is not 0):
       on the CUDA cores), per-head attention (K4: hd 1 to 256 with L = 1,
       17, 50 and 197, and hd 80 at L = 257) and the two passes of the
       pool's backward (K5a, K5b, also at an odd N and on ids off an 8-byte
-      boundary);
+      boundary); then K1, K5a and K5b where the JAX pool takes a buffer that
+      they once refused (rows of 40,000 points at D = 768 in f32 and
+      bf16, 65,537 rows, a 300,000-point row that a block lists in chunks)
+      and K1 at forced launch shapes, each against its plain version and
+      twice for equal bits;
   (d) the main paths, each driven with every launch count set to 0 just
       before it and read just after:
       - the serving engine at full R2R width (r2r_config(), seeded random
@@ -127,7 +131,9 @@ Phases, in order (any failure raises and the exit code is not 0):
         active, against one process on all 16: the same loss, every leaf
         within 1e-5 of its max, K1, K5a and K5b launched on each rank;
   (e) times with CUDA events (kernel, plain version, library yardstick,
-      bound; the pool at the serving, pipeline and train shapes; LayerNorm
+      bound; the pool at the serving, pipeline and train shapes, on the
+      skewed serving buffer and at N = 40,000 beside index_add_; K5a and
+      K5b held to equal bits over two calls at each shape timed; LayerNorm
       at the tower's and the tiny tower's widths in both types; K4 at the
       tiny tower's, B/16's and ViT-H/14's shapes beside SDPA on 4-D inputs
       with its backend named; the launch floor beside the pool backward's
@@ -208,7 +214,8 @@ from gridmm_tpu_torch.ops.cuda.attention import (ATTENTION_FWD,
                                                  ATTENTION_QKV_FWD)
 from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
                                                  GRID_POOL_BWD2,
-                                                 GRID_POOL_FWD, grid_pool_bwd)
+                                                 GRID_POOL_FWD, bwd_tiles,
+                                                 grid_pool_bwd)
 from gridmm_tpu_torch.ops.cuda.layernorm import LAYERNORM_FWD
 from gridmm_tpu_torch.pipeline import encode_and_pool
 from gridmm_tpu_torch.serve.engine import NavServingEngine
@@ -557,8 +564,8 @@ def check_pool_bwd_kernels(report):
           one bf16 ulp of each value (2^-7 relative: both sides round the
           same f32 product, which may sit on a rounding boundary);
       s:  within 1e-5 x max|s| (a 768-term f32 dot product, other order);
-      S, dw: within 1e-4 x their max (S adds ~45 terms per cell with f32
-          atomics in an order that varies from run to run)."""
+      S, dw: within 1e-4 x their max (S adds ~45 terms per cell tile by
+          tile, in another order than the plain version's)."""
     worst = {"grid_pool_bwd1": 0.0, "grid_pool_bwd2": 0.0}
     for kind in ("random", "edges"):
         base = pool_case(kind, 16, torch.float32, seed=3)
@@ -627,6 +634,104 @@ def check_pool_bwd_kernels(report):
           f"max|diff| dw {err:.3e}")
     for name, err in worst.items():
         report[name]["max_abs_err"] = err
+
+
+def random_pool_case(b, n, d, dtype, seed):
+    """(b, n, d) pool inputs on the card: ids in [-1, 198), weights x 3."""
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32))
+    cells = rng.integers(-1, 198, size=(b, n)).astype(np.int32)
+    w = (rng.standard_normal((b, n)) * 3.0).astype(np.float32)
+    return (g.to("cuda", dtype), torch.from_numpy(cells).cuda(),
+            torch.from_numpy(w).cuda())
+
+
+def check_pool_any_shape(report):
+    """(c) K1, K5a and K5b where the JAX pool takes a buffer that the
+    kernels once refused: rows of 40,000 points at D = 768 (f32 and bf16),
+    65,537 rows (the grid's y extent plus 2), a row whose cluster's blocks
+    list their shares in three chunks each (300,000 points), and K1 at
+    forced launch shapes (a thousand-point chunk, an odd cluster) on the
+    skewed serving buffer.
+    Against the plain versions with phase (c)'s tolerances, and a second
+    call with equal bits."""
+    worst = {"grid_pool_fwd": 0.0, "grid_pool_bwd1": 0.0,
+             "grid_pool_bwd2": 0.0}
+    cases = [(2, 40000, 768, torch.float32), (2, 40000, 768, torch.bfloat16),
+             (65537, 4, 8, torch.float32), (1, 300000, 8, torch.float32)]
+    for b, n, d, dtype in cases:
+        g, cells, w = random_pool_case(b, n, d, dtype, seed=n + b)
+        got = GRID_POOL_FWD(g, cells, w)
+        again = GRID_POOL_FWD(g, cells, w)
+        want_p, want_m, want_d = GP.grid_scatter_pool_raw(g, cells, w)
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"K1: two runs differ in bits ({b}, {n}, {d}, {dtype})")
+        require(torch.equal(got[1], want_m)
+                and torch.equal(got[3], GP.cell_max(cells, w)),
+                f"K1: mask or cell max differs ({b}, {n}, {d}, {dtype})")
+        atol = (1e-5 * want_p.abs().max().item() if dtype == torch.float32
+                else 2.0 ** -8 * g.float().abs().max().item())
+        torch.testing.assert_close(got[0], want_p, rtol=1e-5, atol=atol)
+        torch.testing.assert_close(got[2], want_d, rtol=1e-5, atol=0)
+        err_f = (got[0] - want_p).abs().max().item()
+        worst["grid_pool_fwd"] = max(worst["grid_pool_fwd"], err_f)
+        line = f"  K1 ({b}, {n}, {d}) {str(dtype)[6:]}: {err_f:.3e}"
+        if n != 300000:
+            cot = torch.randn((b, 196, d), device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(1))
+            bwd = grid_pool_bwd(g, cells, w, got[3], got[2], cot)
+            bwd2 = grid_pool_bwd(g, cells, w, got[3], got[2], cot)
+            want = GP.grid_pool_bwd_terms(g, cells, w, got[2], cot)
+            torch.cuda.synchronize()
+            require(all(torch.equal(x, y) for x, y in zip(bwd, bwd2)),
+                    f"K5: two runs differ in bits ({b}, {n}, {d})")
+            dg, want_dg = bwd[0].float(), want[0].float()
+            if dtype == torch.float32:
+                torch.testing.assert_close(
+                    dg, want_dg, rtol=0,
+                    atol=1e-5 * want_dg.abs().max().item())
+            else:
+                torch.testing.assert_close(dg, want_dg, rtol=2.0 ** -7,
+                                           atol=1e-30)
+            errs = {}
+            for name, a, ref, tol in (("dw", bwd[1], want[1], 1e-4),
+                                      ("s", bwd[2], want[2], 1e-5),
+                                      ("S", bwd[3], want[3], 1e-4)):
+                torch.testing.assert_close(
+                    a, ref, rtol=0, atol=tol * ref.abs().max().item(),
+                    msg=lambda m, name=name: f"{name}: {m}")
+                errs[name] = (a - ref).abs().max().item()
+            errs["dg"] = (dg - want_dg).abs().max().item()
+            worst["grid_pool_bwd1"] = max(worst["grid_pool_bwd1"],
+                                          errs["dg"], errs["s"])
+            worst["grid_pool_bwd2"] = max(worst["grid_pool_bwd2"],
+                                          errs["dw"])
+            line += (f"; K5 dg {errs['dg']:.3e} s {errs['s']:.3e} S "
+                     f"{errs['S']:.3e} dw {errs['dw']:.3e}")
+            del bwd, bwd2, want, dg, want_dg, cot
+        print(line + "; two runs equal bit for bit")
+        del g, cells, w, got, again, want_p
+    g, cells, w = pool_case("skew", SERVE_SLOTS, torch.float32, seed=2)
+    want = GP.grid_scatter_pool_raw(g, cells, w)
+    for shape in ((1, 1, 1000), (2, 3, 777), (3, 7, 300)):
+        outs = (torch.empty((SERVE_SLOTS, 196, POOL_D), device="cuda"),
+                torch.empty((SERVE_SLOTS, 196), dtype=torch.bool,
+                            device="cuda"),
+                torch.empty((SERVE_SLOTS, 256), device="cuda"),
+                torch.empty((SERVE_SLOTS, 196), device="cuda"))
+        GRID_POOL_FWD.launch(g, cells, w, *outs, shape=shape)
+        torch.cuda.synchronize()
+        require(torch.equal(outs[1], want[1]), f"K1 mask at {shape}")
+        torch.testing.assert_close(outs[0], want[0], rtol=1e-5,
+                                   atol=1e-5 * want[0].abs().max().item())
+        torch.testing.assert_close(outs[2], want[2], rtol=1e-5, atol=0)
+        err = (outs[0] - want[0]).abs().max().item()
+        worst["grid_pool_fwd"] = max(worst["grid_pool_fwd"], err)
+        print(f"  K1 skewed serving buffer at (group, row_split, chunk) "
+              f"{shape}: {err:.3e}")
+    for name, err in worst.items():
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
 
 
 def run_engine(model, cfg, rows, texts, make=None, cuda_graph=True):
@@ -1101,8 +1206,8 @@ def time_pool(g, cells, w, label, dev_name):
     times["bound_ms"] = pool_bytes(g, cells) / HBM_BYTES_PER_S * 1e3
     times["bound_by"] = "bytes"
     times["shape"] = label
-    # how the points spread over the cells: one block owns a whole cell, so
-    # a cell that holds much of a row sets the kernel's time
+    # how the points spread over the cells: the blocks of one cluster own a
+    # cell, so a cell that holds much of a row sets the kernel's time
     per_cell = torch.zeros((b, 256), device="cuda").scatter_add_(
         1, cidx, valid.float())
     times["valid_fraction"] = valid.float().mean().item()
@@ -2099,16 +2204,26 @@ def time_pool_bwd(g, cells, w, label, dev_name):
     b, n, d = g.shape
     cmax, denom, cot = bwd_inputs(g, cells, w, seed=1)
     d_fts, d_w, s, big_s = grid_pool_bwd(g, cells, w, cmax, denom, cot)
+    # S is summed in an order fixed by the shape: a second call gives the
+    # same bits in all four outputs
+    again = grid_pool_bwd(g, cells, w, cmax, denom, cot)
+    require(all(torch.equal(x, y) for x, y in
+                zip((d_fts, d_w, s, big_s), again)),
+            f"two calls of the pool backward differ in bits ({label})")
+    del again
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     code = 0 if g.dtype == torch.float32 else 1
+    tiles = bwd_tiles(b, n, sms)
+    partial = torch.empty((b * tiles, 256), device="cuda")
+    done = torch.zeros((b,), dtype=torch.int32, device="cuda")
 
     def pass1():
-        big_s.zero_()
+        done.zero_()
         GRID_POOL_BWD1.launch(
             g.device, g.data_ptr(), code, cells.data_ptr(), w.data_ptr(),
             cmax.data_ptr(), denom.data_ptr(), cot.data_ptr(),
-            d_fts.data_ptr(), s.data_ptr(), big_s.data_ptr(), b, n, d, 196,
-            sms * 32)
+            d_fts.data_ptr(), s.data_ptr(), big_s.data_ptr(),
+            partial.data_ptr(), done.data_ptr(), b, n, d, 196, tiles)
 
     def pass2(cells, w, cmax, denom, big_s, s, d_w, valid, idx):
         GRID_POOL_BWD2.launch(
@@ -2164,10 +2279,12 @@ def time_pool_bwd(g, cells, w, label, dev_name):
         warmup=2)
     for t in (t1, t2):
         t["shape"] = label
+    t1["same_bits_twice"] = True
     print(f"  grid_pool_bwd1 {label}: kernel {t1['ms']:.4f} ms, plain (both "
           f"passes) {t1['plain_ms']:.4f}, autograd of the index_add_ "
           f"forward {t1['library_ms']:.4f}, bound {t1['bound_ms']:.4f} ms "
-          f"({t1['bound_by']}) [{dev_name}]")
+          f"({t1['bound_by']}); two calls equal bit for bit in d_fts, "
+          f"d_weights, s and S [{dev_name}]")
     print(f"  grid_pool_bwd2 {label}: kernel {t2['ms']:.5f} ms "
           f"({t2['l2_ms']:.5f} from L2), plain {t2['plain_ms']:.5f}, bound "
           f"{t2['bound_ms']:.5f} ms ({t2['bound_by']}), launch floor (a "
@@ -2982,7 +3099,9 @@ INT8_R2R_TOL = 5e-2
 # test_misc.py's token cosine for the tower
 INT8_COS, INT8_SPREAD, CLIP_INT8_COS = 0.99, 0.2, 0.98
 # a mesh of one rank against the run without it: the same kernels on the
-# same seeds; only atomics' order (K5b, cuBLAS split-K) may move last bits
+# same seeds; only the order of PyTorch's atomics may move last bits (the
+# scatter_add that backs the fused logits' torch.gather, models/
+# navigator.py:354; the pool's kernels sum in a fixed order)
 MESH_REL_TOL = 1e-6
 # the two-rank update: dropout off (the ranks draw different masks), Adam
 # eps 1e-2 (a zero gradient's rounding noise would decide a whole +-lr at
@@ -3301,9 +3420,17 @@ def mesh_train_navigator(out):
     # gradient was rounding noise in every update of the run without a
     # mesh (the key biases, and the biases of the global action head's last
     # two layers, which add the same to every logit of its softmax): Adam
-    # steps those by up to ~lr on the noise's sign, which K5a's atomics set
-    # anew in each run, so their gradients above hold them
+    # steps those by up to ~lr on the noise's sign, which the backward of
+    # the fused logits' torch.gather (models/navigator.py:354) sets anew in
+    # each run: on the card it is PyTorch's scatter_add, which adds with
+    # atomics (chip_profile.py --changing-ops names it), so their gradients
+    # above hold them. The pool's kernels give the same bits on every
+    # run.
     quiet = noise_leaves(g0)
+    # how many leaves the two runs give different bits, update by update
+    bits_apart = [sum(not torch.equal(a[k], b[k]) for k in b)
+                  for a, b in zip(g1, g0)]
+    weights_apart = sum(not torch.equal(s1[k], s0[k]) for k in s0)
     worst = compare_grads({k: v for k, v in s1.items() if k not in quiet},
                           {k: v for k, v in s0.items() if k not in quiet},
                           MESH_REL_TOL, "train_navigator with a mesh: weights")
@@ -3316,14 +3443,18 @@ def mesh_train_navigator(out):
           f"leaf's max (worst ratio over the leaves above that floor: "
           f"gradients {grad_worst:.2e}, weights {worst:.2e}; {len(quiet)} "
           f"leaves with a rounding-noise gradient held by their gradients "
-          f"alone: {sorted(quiet)}); launches "
+          f"alone: {sorted(quiet)}); leaves whose gradients differ in bits, "
+          f"by update: {bits_apart}, weights after: {weights_apart}; "
+          f"launches "
           f"{launches}; {out['train_navigator_s_mesh']:.2f}s against "
           f"{out['train_navigator_s_plain']:.2f}s without")
     out["train_navigator_launches"] = launches
     out["train_navigator"] = {"losses": l1, "plain_losses": l0,
                               "grads_worst_rel": grad_worst,
                               "weights_worst_rel": worst,
-                              "noise_leaves": sorted(quiet)}
+                              "noise_leaves": sorted(quiet),
+                              "grad_leaves_apart": bits_apart,
+                              "weight_leaves_apart": weights_apart}
     return launches
 
 
@@ -3521,7 +3652,8 @@ def two_rank_dp_path(report):
 
 # ------------------------------------------------- (f) the entry points
 # phase (c)'s K5 tolerances, relative to each gradient's max: K5a's d_fts
-# (one product per element) and K5b's d_weights (f32 atomics in S)
+# (one product per element) and K5b's d_weights (S summed in another order
+# than the plain version's)
 POOL_BWD_DG_TOL, POOL_BWD_DW_TOL = 1e-5, 1e-4
 ENTRY_UPDATES = 3                 # bench_train_update's timed updates here
 ENTRY_CE_ROUNDS, ENTRY_CE_STEPS = 2, 6
@@ -3891,6 +4023,7 @@ def main(argv=None) -> int:
     check_layernorm_kernel(report)
     check_attention_kernels(report)
     check_pool_bwd_kernels(report)
+    check_pool_any_shape(report)
 
     phase_s["c"] = time.time() - t_phase
     print(f"    phase (c): {phase_s['c']:.1f}s")
@@ -3981,8 +4114,8 @@ def main(argv=None) -> int:
         ps.features, cells, ps.weights, "main path B=4 N=8832 D=768 f32",
         dev_name)}
     # the serving shape again with the points spread evenly over the cells,
-    # and with 90% of one row in one cell: a block streams a cell alone, so
-    # the spread sets the kernel's time
+    # and with 90% of one row in one cell: a block streams a cell, so the
+    # spread sets the kernel's time
     for kind, key in (("random", "serving_B4_f32_uniform"),
                       ("skew", "serving_B4_f32_skew")):
         g, c, w = pool_case(kind, SERVE_SLOTS, torch.float32, seed=5)
@@ -3990,6 +4123,11 @@ def main(argv=None) -> int:
             g, c, w, f"B={SERVE_SLOTS} N=8832 D=768 f32 ({kind} cells)",
             dev_name)
         del g, c, w
+    # rows longer than one block of the forward once listed
+    g, c, w = random_pool_case(2, 40000, POOL_D, torch.float32, seed=40)
+    timing["long_B2_N40000_f32"] = time_pool(
+        g, c, w, "B=2 N=40000 D=768 f32 (ids in [-1, 198))", dev_name)
+    del g, c, w
     # the pipeline's shape: 16 panoramas, full bf16 buffer
     g, c, w = pool_case("random", PIPE_PANOS, torch.bfloat16, seed=5)
     timing["pipeline_B16_bf16"] = time_pool(

@@ -9,6 +9,13 @@ inputs, allocates the four outputs and launches on the current stream.
 `GRID_POOL_BWD1` and `GRID_POOL_BWD2` replace `_pool_bwd1_kernel` (:164) and
 `_pool_bwd2_kernel` (:198), the two passes of the pool's backward. Each
 launcher's `launches` counts its kernel launches.
+
+The kernels take any (B, N, D) that fits the card's memory, as the JAX pool
+does, and give the same bits on every run: the forward deals a long row to
+a thread-block cluster and lists a long share in chunks
+(`fwd_launch_shape`); pass 1 sums S from per-tile partials in tile order
+(`bwd_tiles`). The wrapper picks the launch shapes from the
+inputs' shape.
 """
 
 from __future__ import annotations
@@ -23,12 +30,43 @@ CELL_PAD = 256
 SOURCE = "grid_pool_fwd"
 SOURCE_BWD = "grid_pool_bwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the forward keeps a 16-bit index and a weight per point of a batch row in
-# shared memory (232,448 bytes a block, less at most 48 KB of partial sums
-# and 2 KB of fixed tables)
-MAX_POINTS = (232448 - 49152 - 2048) // 6
 MAX_GROUP = 4            # cells a block may own
-TARGET_BLOCKS = 1024     # blocks the forward aims to give the card
+# the forward deals a row longer than SPLIT_POINTS to a cluster of
+# ceil(N / SPLIT_POINTS) blocks (at most MAX_ROW_SPLIT, a portable cluster)
+# in runs of 32 points, so that a cell holding much of a long row is
+# streamed by several SMs; such a block owns MAX_GROUP cells. Timed on the
+# main paths' own buffers (PERF.md section 6), splitting the serving and
+# pipeline buffers' 8,832 points costs more than it saves, and splitting the
+# pretraining and CE buffers' 12,416 and 11,776 saves. An unsplit row goes
+# to blocks of up to MAX_GROUP cells, about TARGET_BLOCKS of them. A block
+# lists at most MAX_CHUNK points of its share at a time (16-bit indices and
+# a weight: 96 KB of shared memory), all of it at the main paths' shapes.
+MAX_ROW_SPLIT = 8
+SPLIT_POINTS = 8832
+MAX_CHUNK = 16384
+TARGET_BLOCKS = 1024
+# the backward's pass 1 cuts each row into tiles, about TILE_BLOCKS_PER_SM
+# blocks of 8 warps an SM over the batch (four waves), and at least 32
+# points a tile
+TILE_BLOCKS_PER_SM = 32
+
+
+def fwd_launch_shape(b: int, n: int, num_cells: int):
+    """(group, row_split, chunk) of the forward's launch for B rows of N
+    points: cells a block owns, blocks (one cluster) that share a row, and
+    the points of its share a block lists at a time. Any N and B."""
+    row_split = max(1, min(MAX_ROW_SPLIT, -(-n // SPLIT_POINTS)))
+    if row_split > 1:
+        group = MAX_GROUP
+    else:
+        group = max(1, min(MAX_GROUP, -(-b * num_cells // TARGET_BLOCKS)))
+    share = -(-n // 32 // row_split) * 32 if row_split > 1 else n
+    return group, row_split, min(MAX_CHUNK, share)
+
+
+def bwd_tiles(b: int, n: int, sms: int) -> int:
+    """Tiles of a row in the backward's pass 1 (1 to N)."""
+    return max(1, min(-(-sms * TILE_BLOCKS_PER_SM // b), n // 32))
 
 
 class GridPoolFwd:
@@ -37,6 +75,11 @@ class GridPoolFwd:
     name = "grid_pool_fwd"
     source = "gridmm_tpu_torch/csrc/grid_pool_fwd.cu"
     replaces = "gridmm_tpu/ops/pallas/grid_pool_kernel.py:30"
+    symbol = "gridmm_grid_pool_fwd"
+    # g, dtype, cells, w, pooled, mask, denom, cmax, b, n, d, num_cells,
+    # group, row_split, chunk, stream
+    argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
     def __init__(self):
         self.launches = 0
@@ -44,11 +87,7 @@ class GridPoolFwd:
 
     def _function(self):
         if self._fn is None:
-            self._fn = build.function(SOURCE, "gridmm_grid_pool_fwd", [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            self._fn = build.function(SOURCE, self.symbol, self.argtypes)
         return self._fn
 
     def __call__(self, point_fts, cell_ids, weights, num_cells: int = 196):
@@ -58,14 +97,6 @@ class GridPoolFwd:
         The same inputs give the same bits on every run."""
         b, n, d = _check_points(self.name, point_fts, cell_ids, weights,
                                 num_cells)
-        if n > MAX_POINTS:
-            raise ValueError(f"{self.name}: N={n} points a row need more "
-                             f"shared memory than a block has (at most "
-                             f"{MAX_POINTS})")
-        if b > 65535 or n * d >= 2 ** 31:
-            raise ValueError(f"{self.name}: B={b} rows or N*D={n * d} "
-                             "elements a row exceed the kernel's grid or "
-                             "its 32-bit row offsets")
         dev = point_fts.device
         pooled = torch.empty((b, num_cells, d), dtype=torch.float32,
                              device=dev)
@@ -78,23 +109,22 @@ class GridPoolFwd:
         return pooled, cell_mask, denom, cmax
 
     def launch(self, point_fts, cell_ids, weights, pooled, cell_mask, denom,
-               cmax):
+               cmax, shape=None):
         """The bare kernel launch on checked tensors: writes all four
-        outputs in full. Not counted."""
+        outputs in full. `shape` is (group, row_split, chunk), by default
+        `fwd_launch_shape`'s. Not counted."""
         b, n, d = point_fts.shape
         num_cells = cmax.shape[1]
         dev = point_fts.device
-        # cells a block owns: fewer at small B, so that the card still gets
-        # about TARGET_BLOCKS blocks; more at large B, so that fewer blocks
-        # reread a row's cell ids
-        group = max(1, min(MAX_GROUP, -(-b * num_cells // TARGET_BLOCKS)))
+        group, row_split, chunk = shape or fwd_launch_shape(b, n,
+                                                            num_cells)
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             err = self._function()(
                 point_fts.data_ptr(), _DTYPE_CODE[point_fts.dtype],
                 cell_ids.data_ptr(), weights.data_ptr(), pooled.data_ptr(),
                 cell_mask.data_ptr(), denom.data_ptr(), cmax.data_ptr(),
-                b, n, d, num_cells, group, stream)
+                b, n, d, num_cells, group, row_split, chunk, stream)
         if err != 0:
             raise RuntimeError(f"grid_pool_fwd launch failed: cudaError {err}")
 
@@ -173,7 +203,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 GRID_POOL_BWD1 = GridPoolBwd(
     "grid_pool_bwd1", "gridmm_tpu/ops/pallas/grid_pool_kernel.py:164",
     "gridmm_grid_pool_bwd1",
-    [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+    [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+     _P])
 GRID_POOL_BWD2 = GridPoolBwd(
     "grid_pool_bwd2", "gridmm_tpu/ops/pallas/grid_pool_kernel.py:198",
     "gridmm_grid_pool_bwd2", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
@@ -193,24 +224,26 @@ def grid_pool_bwd(point_fts, cell_ids, weights, cmax, denom, cot):
     num_cells = cot.shape[1]
     b, n, d = _check_points("grid_pool_bwd", point_fts, cell_ids, weights,
                             num_cells)
-    if b > 65535:
-        raise ValueError(f"grid_pool_bwd: B={b} rows exceed the grid's "
-                         "65535 rows")
     dev = point_fts.device
     _check_f32("grid_pool_bwd", dev, cmax=(cmax, (b, num_cells)),
                denom=(denom, (b, CELL_PAD)), cot=(cot, (b, num_cells, d)))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = bwd_tiles(b, n, sms)
     d_fts = torch.empty_like(point_fts)
     s = torch.empty((b, n), dtype=torch.float32, device=dev)
-    big_s = torch.zeros((b, CELL_PAD), dtype=torch.float32, device=dev)
+    big_s = torch.empty((b, CELL_PAD), dtype=torch.float32, device=dev)
     d_w = torch.empty((b, n), dtype=torch.float32, device=dev)
-    # 8 warps a block, one point a warp at a time: enough blocks to keep
-    # every SM full, the rest of the points by grid stride
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # pass 1's scratch: one (256) partial of S a tile, and a count a row of
+    # the tiles done (zero-filled: the last one sums the partials)
+    partial = torch.empty((b * tiles, CELL_PAD), dtype=torch.float32,
+                          device=dev)
+    done = torch.zeros((b,), dtype=torch.int32, device=dev)
     GRID_POOL_BWD1.launch(
         dev, point_fts.data_ptr(), _DTYPE_CODE[point_fts.dtype],
         cell_ids.data_ptr(), weights.data_ptr(), cmax.data_ptr(),
         denom.data_ptr(), cot.data_ptr(), d_fts.data_ptr(), s.data_ptr(),
-        big_s.data_ptr(), b, n, d, num_cells, sms * 32)
+        big_s.data_ptr(), partial.data_ptr(), done.data_ptr(), b, n, d,
+        num_cells, tiles)
     GRID_POOL_BWD2.launch(
         dev, cell_ids.data_ptr(), weights.data_ptr(), cmax.data_ptr(),
         denom.data_ptr(), big_s.data_ptr(), s.data_ptr(), d_w.data_ptr(),

@@ -49,6 +49,34 @@ def _require_card():
         pytest.skip("needs an NVIDIA card")
 
 
+def _random_case(b, n, d, dtype, seed=0, skew=False, num_cells=196):
+    """(b, n, d) features in `dtype`, ids in [-1, num_cells + 2) (a few
+    invalid), weights x 3; `skew`: cell 17 holds 90% of row 0."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((b, n, d)).astype(np.float32)
+    cells = rng.integers(-1, num_cells + 2, size=(b, n)).astype(np.int32)
+    if skew:
+        cells[0][rng.random(n) < 0.9] = 17
+    w = (rng.standard_normal((b, n)) * 3.0).astype(np.float32)
+    return (torch.from_numpy(g).to("cuda", dtype),
+            torch.from_numpy(cells).cuda(), torch.from_numpy(w).cuda())
+
+
+def _assert_pool_matches_plain(got, g, cells, w, num_cells=196):
+    """K1's four outputs against the plain version, with the tolerances of
+    test_grid_pool_kernel_matches_plain."""
+    got_p, got_m, got_d, got_x = got
+    want_p, want_m, want_d = grid_scatter_pool_raw(g, cells, w, num_cells)
+    torch.cuda.synchronize()
+    assert got_m.dtype == torch.bool and torch.equal(got_m, want_m)
+    assert torch.equal(got_x, cell_max(cells, w, num_cells))
+    atol = (1e-5 * want_p.abs().max().item() if g.dtype == torch.float32
+            else 2.0 ** -8 * g.float().abs().max().item())
+    torch.testing.assert_close(got_p, want_p, rtol=1e-5, atol=atol)
+    torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=0.0)
+    assert (got_d[:, num_cells:] == 0).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["random", "edges", "skew"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -126,6 +154,50 @@ def test_grid_pool_kernel_other_shapes(b, n, d, cells_n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,d,skew", [(2, 40000, 768, False),
+                                        (4, 8832, 768, True),
+                                        (65537, 4, 8, False),
+                                        (1, 300000, 8, False)])
+def test_grid_pool_kernel_any_row_length_and_batch(b, n, d, skew, dtype):
+    """Rows past the 30,208 (and 65,535) points one block once listed (split
+    over a cluster), a serving buffer with 90% of a row in one cell, more
+    rows than the grid's y extent, and a row long enough that each block of
+    its cluster lists its share in three chunks: against the plain
+    version, and equal bits on a second run."""
+    _require_card()
+    from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_fwd
+
+    g, cells, w = _random_case(b, n, d, getattr(torch, dtype), seed=n + b,
+                               skew=skew)
+    got = grid_pool_fwd(g, cells, w)
+    again = grid_pool_fwd(g, cells, w)
+    _assert_pool_matches_plain(got, g, cells, w)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 1000), (2, 3, 777), (4, 8, 64),
+                                   (3, 7, 300)])
+def test_grid_pool_kernel_at_forced_launch_shapes(shape):
+    """(group, row_split, chunk) forced on a skewed serving buffer: many
+    chunks a block (the online rescale of the running max and sums), odd
+    cluster sizes and cell groups that do not divide 196."""
+    _require_card()
+    from gridmm_tpu_torch.ops.cuda.grid_pool import GRID_POOL_FWD
+
+    g, cells, w = pool_case("skew", torch.float32, seed=2)
+    b, n, d = g.shape
+    outs = (torch.empty((b, 196, d), device="cuda"),
+            torch.empty((b, 196), dtype=torch.bool, device="cuda"),
+            torch.empty((b, 256), device="cuda"),
+            torch.empty((b, 196), device="cuda"))
+    GRID_POOL_FWD.launch(g, cells, w, *outs, shape=shape)
+    _assert_pool_matches_plain(outs, g, cells, w)
+
+
+@pytest.mark.cuda
 def test_grid_pool_kernel_counts_launches_and_rejects_bad_input():
     _require_card()
     from gridmm_tpu_torch.ops.cuda.grid_pool import GRID_POOL_FWD
@@ -139,12 +211,13 @@ def test_grid_pool_kernel_counts_launches_and_rejects_bad_input():
         GRID_POOL_FWD(g, cells.long(), w)
     with pytest.raises(ValueError):
         GRID_POOL_FWD(g[:, ::2], cells[:, ::2], w[:, ::2])
-    with pytest.raises(ValueError):               # the list overflows smem
-        GRID_POOL_FWD(torch.zeros((1, 60000, 4), device="cuda"),
-                      torch.zeros((1, 60000), dtype=torch.int32,
-                                  device="cuda"),
-                      torch.zeros((1, 60000), device="cuda"))
     assert GRID_POOL_FWD.launches == before + 1
+    # a row past the 30,208 points one block once listed: pooled like the
+    # plain version (the launch counted)
+    g, cells, w = _random_case(1, 60000, 4, torch.float32, seed=60)
+    got_p, got_m, got_d, got_x = GRID_POOL_FWD(g, cells, w)
+    assert GRID_POOL_FWD.launches == before + 2
+    _assert_pool_matches_plain((got_p, got_m, got_d, got_x), g, cells, w)
 
 
 # ------------------------------------------------ K5a/K5b pool backward
@@ -167,10 +240,11 @@ def _bwd_case(kind, dtype, b, n, seed=0):
 def test_grid_pool_bwd_kernels_match_plain(kind, dtype, b, n):
     """dg within 1e-5 x max|dg| (f32: one product each side) or one bf16 ulp
     of its magnitude (bf16: both round the same f32 product); s within 1e-5
-    and S, dw within 1e-4 of their max (S adds with f32 atomics in a varying
-    order). N = 8820 is the stacked buffer's length, not a multiple of 512;
-    N = 8821 and 1001 are odd, so every other row starts off an 8-byte
-    boundary and pass 2 takes a scalar head and tail."""
+    and S, dw within 1e-4 of their max (S adds tile by tile, in another
+    order than the plain version's). N = 8820 is the stacked buffer's
+    length, not a multiple of 512; N = 8821 and 1001 are odd, so every
+    other row starts off an 8-byte boundary and pass 2 takes a scalar head
+    and tail."""
     _require_card()
     from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
                                                      GRID_POOL_BWD2,
@@ -203,6 +277,64 @@ def test_grid_pool_bwd_kernels_match_plain(kind, dtype, b, n):
         assert got[1][2, 100].abs().item() <= 1e-6   # one-point cell
         invalid = cells < 0
         assert (dg[invalid] == 0).all() and (got[1][invalid] == 0).all()
+
+
+def _assert_bwd_matches_plain(got, g, cells, w, denom, cot):
+    """K5a/K5b's four outputs against grid_pool_bwd_terms, with the
+    tolerances of test_grid_pool_bwd_kernels_match_plain."""
+    from gridmm_tpu_torch.ops.grid_pool import grid_pool_bwd_terms
+
+    want = grid_pool_bwd_terms(g, cells, w, denom, cot)
+    torch.cuda.synchronize()
+    dg, want_dg = got[0].float(), want[0].float()
+    if g.dtype == torch.float32:
+        torch.testing.assert_close(dg, want_dg, rtol=0,
+                                   atol=1e-5 * want_dg.abs().max().item())
+    else:
+        torch.testing.assert_close(dg, want_dg, rtol=2.0 ** -7, atol=1e-30)
+    for name, a, ref, tol in (("dw", got[1], want[1], 1e-4),
+                              ("s", got[2], want[2], 1e-5),
+                              ("S", got[3], want[3], 1e-4)):
+        torch.testing.assert_close(a, ref, rtol=0,
+                                   atol=tol * ref.abs().max().item(),
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,dtype", [(2, 40000, 768, "float32"),
+                                         (2, 40000, 768, "bfloat16"),
+                                         (65537, 4, 8, "float32")])
+def test_grid_pool_bwd_kernels_any_row_length_and_batch(b, n, d, dtype):
+    """Rows past the forward's old limit and more rows than the grid's y
+    extent (pass 2's old cap): both passes against the plain version."""
+    _require_card()
+    from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_bwd
+
+    g, cells, w = _random_case(b, n, d, getattr(torch, dtype), seed=b + n)
+    _, _, denom = grid_scatter_pool_raw(g, cells, w)
+    denom = denom.contiguous()
+    cot = torch.randn((b, 196, d), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(1))
+    got = grid_pool_bwd(g, cells, w, cell_max(cells, w), denom, cot)
+    _assert_bwd_matches_plain(got, g, cells, w, denom, cot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grid_pool_bwd_kernels_same_bits_on_every_run(dtype):
+    """S is summed in an order fixed by the shape (no atomics): two calls
+    on the same inputs give equal bits in d_fts, d_weights, s and S, at
+    the train shape."""
+    _require_card()
+    from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_bwd
+
+    g, cells, w, cmax, denom, cot = _bwd_case("random", getattr(torch, dtype),
+                                              8, 8820, seed=7)
+    first = grid_pool_bwd(g, cells, w, cmax, denom, cot)
+    second = grid_pool_bwd(g, cells, w, cmax, denom, cot)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
