@@ -3,9 +3,12 @@
 pretraining update's time goes on the card (gridmm_tpu_torch).
 
     python3 chip_profile.py [--steps 5]
-    python3 chip_profile.py --ab OTHER_TREE
+    python3 chip_profile.py --ab OTHER_TREE [--only pool layernorm attention
+                                             pool_bwd]
     python3 chip_profile.py --changing-ops
     python3 chip_profile.py --k1-shapes
+    python3 chip_profile.py --k2-builds
+    python3 chip_profile.py --k4-builds
 
 Builds the full-width R2R navigator (seeded random weights) and, for an
 eager 4-slot serving engine and then one whose step is a CUDA graph, fills
@@ -38,12 +41,15 @@ the point buffers with 15 steps, then:
 The encode's and the pipeline's tables are followed by LayerNorm's launches
 and device time per launch.
 
-With --ab, it only times the pool forward (K1), LayerNorm (K3), per-head
-attention (K4) and the pool backward's two passes (K5a, K5b) as built from
-this tree's csrc/ and from OTHER_TREE's (a checkout of another commit, for
-example the parent unpacked with `git archive`) in one process, on the
-same inputs, in turns (other, this, this, other), at the main paths'
-shapes, reading from device memory. K1 runs on each main path's own
+With --ab, it only times the pool forward (K1), LayerNorm (K3), the
+packed-qkv and per-head attention (K2, K4) and the pool backward's two
+passes (K5a, K5b) as built from this tree's csrc/ and from OTHER_TREE's (a
+checkout of another commit, for example the parent unpacked with `git
+archive`) in one process, on the same inputs, in turns (other, this, this,
+other), at the main paths' shapes, reading from device memory; a shape a
+tree's kernel refuses is timed for the other tree only. `--only` names the
+kernels to time (pool: K1; layernorm: K3; attention: K2 and K4; pool_bwd:
+K5a and K5b); without it, all. K1 runs on each main path's own
 inputs (every K1 launch of one run of the path, recorded: serving,
 pipeline, train, pretrain, CE), on the last serving step's buffer, and on
 random cells at the five paths' shapes and a skewed serving buffer. The
@@ -59,19 +65,31 @@ cluster of one block for unsplit rows) on the paths' inputs: the tables
 the wrapper's choice (`fwd_launch_shape`) and the caps were made from.
 --k1-shapes and --ab may be given together; the paths then run once.
 
+With --k2-builds, it only times builds of the packed-qkv attention (K2)
+that differ in one place each (ATTENTION_BUILDS["k2"]: a third slot in
+the ring, four-warp blocks, no register cap) at its main paths' shapes
+and at L = 1025 and 2048, bf16, in turns: the table its ring and block
+were chosen from. With --k4-builds, the same for the per-head attention
+(K4; ATTENTION_BUILDS["k4"]: the bf16 body streaming every slice's tiles)
+at its main paths' shapes and a few others: the table its bodies were
+chosen from.
+
 With --changing-ops, it only runs one train loss and its backward three
 times on the same inputs and names the operators whose outputs change from
 run to run on the same inputs (`changing_ops`).
 
 Needs one NVIDIA card; writes the tables to chiprun_out/chip_profile.txt
 (chip_profile_ab.json with --ab, chip_profile_changing_ops.json with
---changing-ops, chip_profile_k1_shapes.json with --k1-shapes).
+--changing-ops, chip_profile_k1_shapes.json with --k1-shapes,
+chip_profile_k2_builds.json and chip_profile_k4_builds.json with
+--k2-builds and --k4-builds).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -98,7 +116,8 @@ from gridmm_tpu_torch.ops import geometry as G
 from gridmm_tpu_torch.ops import grid_pool as GP
 from gridmm_tpu_torch.ops import attention as ATT
 from gridmm_tpu_torch.ops.cuda import build
-from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_FWD
+from gridmm_tpu_torch.ops.cuda.attention import (ATTENTION_FWD,
+                                                 ATTENTION_QKV_FWD)
 from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
                                                  GRID_POOL_BWD2,
                                                  GRID_POOL_FWD, GridPoolFwd,
@@ -355,12 +374,38 @@ def attn_args(tensors, code, bh, length, hd):
             length, hd, 1.0 / hd ** 0.5)
 
 
-def ab_kernels(other_root: Path, dev_name: str,
-               paths: dict) -> dict:
-    """K1, K3, K4, K5a and K5b from this tree's csrc/ and from `other_root`'s,
-    on the same inputs, timed in turns (other, this, this, other). Both
-    trees must export the same C entry points (the pool kernels' of either
-    generation). Returns {case: {tree: [ms, ms]}}."""
+AB_KERNELS = ("pool", "layernorm", "attention", "pool_bwd")
+
+
+def ptxas_summary(log: str) -> str:
+    """`kernel<template arg>: registers [spills]` for each entry function
+    in an nvcc -Xptxas -v log."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = mangled[:mangled.find("_kernel") + len("_kernel")]
+            name = name[name.rfind("attention_"):]
+            arg = re.search(r"ILi(\d+)E", mangled)
+            if arg:
+                name += f"<{arg.group(1)}>"
+            spill = ""
+        elif "spill stores" in line and not line.strip().startswith(
+                "0 bytes stack"):
+            spill = f" [{line.strip()}]"
+        elif "registers" in line and name:
+            regs = line.split("Used ")[1].split(" registers")[0]
+            out.append(f"{name}: {regs}{spill}")
+    return "; ".join(out) or "not rebuilt"
+
+
+def ab_kernels(other_root: Path, dev_name: str, paths: dict,
+               only=AB_KERNELS) -> dict:
+    """K1, K3, K2 and K4, K5a and K5b (those `only` names) from this tree's
+    csrc/ and from `other_root`'s, on the same inputs, timed in turns
+    (other, this, this, other). Both trees must export the same C entry
+    points (the pool kernels' of either generation). Returns {case: {tree:
+    [ms, ms]}}."""
     trees = {"other": other_root / "gridmm_tpu_torch" / "csrc",
              "this": build.SRC_DIR}
     # a tree whose K1 splits rows: K1 takes (group, row_split, chunk), K5a its
@@ -369,8 +414,10 @@ def ab_kernels(other_root: Path, dev_name: str,
                   for tree, src in trees.items()}
     fns = {}
     for tree, src in trees.items():
-        build.build_all([SOURCE, "layernorm_fwd", SOURCE_BWD,
-                         "attention_fwd"], src)
+        logs = build.build_all([SOURCE, "layernorm_fwd", SOURCE_BWD,
+                                "attention_fwd", "attention_qkv_fwd"], src)
+        for name in ("attention_qkv_fwd", "attention_fwd"):
+            print(f"  {tree} {name}: {ptxas_summary(logs.get(name, ''))}")
         fwd_args = GRID_POOL_FWD.argtypes
         if not split_rows[tree]:     # (..., group, stream)
             fwd_args = fwd_args[:-3] + fwd_args[-1:]
@@ -382,6 +429,9 @@ def ab_kernels(other_root: Path, dev_name: str,
                                   src),
             "attn": build.function("attention_fwd", ATTENTION_FWD.symbol,
                                    ATTENTION_FWD.argtypes, src),
+            "qkv": build.function("attention_qkv_fwd",
+                                  ATTENTION_QKV_FWD.symbol,
+                                  ATTENTION_QKV_FWD.argtypes, src),
             "ln": build.function("layernorm_fwd", LAYERNORM_FWD.symbol,
                                  LAYERNORM_FWD.argtypes, src),
             "bwd1": build.function(SOURCE_BWD, GRID_POOL_BWD1.symbol,
@@ -404,10 +454,29 @@ def ab_kernels(other_root: Path, dev_name: str,
               f"{got['other'][1]:.5f} ms, this {got['this'][0]:.5f} / "
               f"{got['this'][1]:.5f} ms [{dev_name}]")
 
-    # K1 on the main paths' own inputs (a run of each path: every launch
-    # in turn), on the last serving step's buffer, and on synthetic buffers
-    # at the main paths' shapes, each tree with its own launch shape (the
-    # parent's: `group` cells a block, a block a row)
+    if "pool" in only:
+        pool_forward_ab(paths, split_rows, fns, turns)
+    if "layernorm" in only:
+        layernorm_ab(fns, turns, run, result)
+    if "attention" in only:
+        attention_ab(fns, turns, run, result, stream, dev_name)
+    if "pool_bwd" in only:
+        pool_backward_ab(trees, split_rows, fns, turns, run)
+    one = torch.ones(1, device="cuda")
+    result["launch floor (a one-element torch.add)"] = cuda_ms(
+        lambda: torch.add(one, one, out=one), iters=30)
+    print(f"  launch floor (a one-element torch.add): "
+          f"{result['launch floor (a one-element torch.add)']:.5f} ms "
+          f"[{dev_name}]")
+    return result
+
+
+def pool_forward_ab(paths, split_rows, fns, turns):
+    """K1 of both trees on the main paths' own inputs (a run of each path:
+    every launch in turn), on the last serving step's buffer, and on
+    synthetic buffers at the main paths' shapes, each tree with its own
+    launch shape (the parent's: `group` cells a block, a block a row)."""
+    trees = ("other", "this")
     cases = {f"{label} path, its {len(caps)} launches": caps
              for label, caps in paths.items()}
     cases["serving, the last step's buffer"] = paths["serving"][-1:]
@@ -450,8 +519,12 @@ def ab_kernels(other_root: Path, dev_name: str,
                                    iters=max(3, 25 // len(caps)),
                                    warmup=1))
         del outs, pooled
-    del cases
 
+
+def layernorm_ab(fns, turns, run, result):
+    """K3 of both trees at the towers' shapes, beside a copy_ of the same
+    bytes."""
+    trees = ("other", "this")
     rng = np.random.default_rng(5)
     for rows, c, dtype in ((9600, 768, torch.bfloat16),
                            (9600, 768, torch.float32),
@@ -484,14 +557,64 @@ def ab_kernels(other_root: Path, dev_name: str,
         print(f"    copy_ of the same bytes: {result[case]['copy_ms']:.5f} ms")
         del sets, ys
 
-    # K4 at the tiny tower's, B/16's and ViT-H/14's shapes, each call on its
-    # own q, k, v and o; a shape that a tree's kernel refuses is not timed
-    # for that tree
+
+def timed_where_taken(case, takes, timer, turns, result, dev_name):
+    """Both trees in turns where both take the shape, else the tree that
+    does, twice."""
+    if all(takes.values()):
+        turns(case, timer)
+        return
+    tree = "this" if takes["this"] else "other"
+    result[case] = {t: None for t in takes}
+    result[case][tree] = [timer(tree) for _ in range(2)]
+    print(f"  {case}: only {tree} takes it, {result[case][tree][0]:.5f} / "
+          f"{result[case][tree][1]:.5f} ms [{dev_name}]")
+
+
+def attention_ab(fns, turns, run, result, stream, dev_name):
+    """K2 at its main paths' shapes (clip_b32's (192, 50), the CE view
+    tower's (48, 197), B/16's (192, 197)) and at L = 1025, bf16; K4 at the
+    tiny tower's, B/16's and ViT-H/14's shapes and at long L and hd 320.
+    Each call on its own input and output."""
+    trees = ("other", "this")
     gen = torch.Generator(device="cuda").manual_seed(6)
+    for b, length in ((CLIP_BATCH * VIEWS, 50), (48, 197),
+                      (CLIP_BATCH * VIEWS, 197), (4, 1025)):
+        sets = [(torch.randn((b, length, 2304), generator=gen,
+                             device="cuda").to(torch.bfloat16),
+                 torch.empty((b, length, 768), device="cuda",
+                             dtype=torch.bfloat16))
+                for _ in range(copies_for(b * length * 3072 * 2))]
+
+        def qkv_args(x, o, b=b, length=length):
+            return (x.data_ptr(), 1, o.data_ptr(), b, length, 12, 0.125)
+
+        x, o = sets[0]
+        want = ATT.attention_qkv_plain(x, 12).float()
+        takes = {}
+        for tree in trees:
+            o.zero_()
+            takes[tree] = fns[tree]["qkv"](*qkv_args(x, o), stream) == 0
+            if takes[tree]:
+                torch.testing.assert_close(o.float(), want, rtol=0.0,
+                                           atol=attn_atol(x.dtype,
+                                                          x[..., 1536:]))
+        require(takes["this"], f"attention_qkv_fwd refused L = {length}")
+        timed_where_taken(
+            f"attention_qkv_fwd ({b}, {length}, 2304) bfloat16", takes,
+            lambda tree: rotating_ms(
+                lambda *a: run(fns[tree]["qkv"], *qkv_args(*a)), sets),
+            turns, result, dev_name)
+        del sets, x, o, want
+
+    # K4, each call on its own q, k, v and o
     for bh, length, hd, dtype in (
             (4 * VIEWS * 4, 50, 16, torch.float32),
             (CLIP_BATCH * VIEWS * 12, 197, 64, torch.bfloat16),
-            (CLIP_BATCH * VIEWS * 16, 257, 80, torch.bfloat16)):
+            (CLIP_BATCH * VIEWS * 16, 257, 80, torch.bfloat16),
+            (64, 1025, 80, torch.bfloat16),
+            (16, 600, 320, torch.bfloat16),
+            (16, 600, 320, torch.float32)):
         code = 0 if dtype == torch.float32 else 1
         size = 2 if dtype == torch.bfloat16 else 4
         sets = [tuple(torch.randn((bh, length, hd), generator=gen,
@@ -512,19 +635,15 @@ def ab_kernels(other_root: Path, dev_name: str,
                 torch.testing.assert_close(o.float(), want, rtol=0.0,
                                            atol=attn_atol(dtype, v))
         require(takes["this"], f"attention_fwd refused hd {hd}")
-        case = f"attention_fwd ({bh}, {length}, {hd}) {str(dtype)[6:]}"
-        if takes["other"]:
-            turns(case, lambda tree: rotating_ms(
-                lambda *a: attn(tree, *a), sets))
-        else:     # the parent's K4 took hd 16, 32, 64 and 128 only
-            result[case] = {"other": None, "this": [
-                rotating_ms(lambda *a: attn("this", *a), sets)
-                for _ in range(2)]}
-            print(f"  {case}: other refuses it, this "
-                  f"{result[case]['this'][0]:.5f} / "
-                  f"{result[case]['this'][1]:.5f} ms [{dev_name}]")
+        timed_where_taken(
+            f"attention_fwd ({bh}, {length}, {hd}) {str(dtype)[6:]}", takes,
+            lambda tree: rotating_ms(lambda *a: attn(tree, *a), sets),
+            turns, result, dev_name)
         del sets, q, k, v, o, want
 
+
+def pool_backward_ab(trees, split_rows, fns, turns, run):
+    """K5a and K5b of both trees at the train shape."""
     # the pool backward at the train shape: B=16, N=8820, D=768 f32
     g, cells, w = pool_case("random", 16, torch.float32, seed=6, n=8820)
     b, n, d = g.shape
@@ -575,13 +694,6 @@ def ab_kernels(other_root: Path, dev_name: str,
     turns(f"both passes {label}",
           lambda tree: cuda_ms(lambda: (pass1(tree), pass2(tree, *sets2[0])),
                                iters=10, warmup=2))
-    one = torch.ones(1, device="cuda")
-    result["launch floor (a one-element torch.add)"] = cuda_ms(
-        lambda: torch.add(one, one, out=one), iters=30)
-    print(f"  launch floor (a one-element torch.add): "
-          f"{result['launch floor (a one-element torch.add)']:.5f} ms "
-          f"[{dev_name}]")
-    return result
 
 
 def checksums(tree):
@@ -764,6 +876,141 @@ def k1_variants(dev_name: str, paths: dict) -> dict:
     return out
 
 
+# Builds of K2 and K4 that differ in one place each: {kernel: (source,
+# {variant: ((file, old text, new text), ...)})}. The tables the rings,
+# blocks and bodies were chosen from.
+ATTENTION_BUILDS = {
+    "k2": ("attention_qkv_fwd", {
+        "as built": (),
+        "three slots": (("attention_qkv_mma.cuh",
+                         "constexpr int kStages = 2;",
+                         "constexpr int kStages = 3;"),),
+        "four-warp blocks": (("attention_qkv_mma.cuh",
+                              "constexpr int kMaxWarps = 8;",
+                              "constexpr int kMaxWarps = 4;"),),
+        "no register cap": (("attention_qkv_mma.cuh",
+                             "__launch_bounds__(kMaxThreads, 2)",
+                             "__launch_bounds__(kMaxThreads)"),),
+    }),
+    "k4": ("attention_fwd", {
+        "as built": (),
+        # bf16: every item's tiles stream, as those of a slice that
+        # outgrows the ring do
+        "streamed only": (
+            ("attention_head_mma.cuh", "const bool resident = tiles <= slots;",
+             "const bool resident = false;"),
+            ("attention_fwd.cu",
+             "const long long units = tiles <= hm::ring_slots(kHdP)",
+             "const long long units = false")),
+    }),
+}
+
+
+def build_variants(kernel: str) -> dict:
+    """Each build of ATTENTION_BUILDS[kernel] (the sources written under the
+    git-ignored build directory, all compiled at once): {variant: its C
+    function}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    source, variants = ATTENTION_BUILDS[kernel]
+    dirs = {}
+    for i, (name, edits) in enumerate(variants.items()):
+        d = build.BUILD_DIR / "variants" / f"{kernel}_v{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        texts = {src.name: src.read_text()
+                 for src in [build.SRC_DIR / f"{source}.cu",
+                             *build.SRC_DIR.glob("*.cuh")]}
+        for file, old, new in edits:
+            require(old in texts[file],
+                    f"variant {name}: {old!r} not in {file}")
+            texts[file] = texts[file].replace(old, new)
+        for file, text in texts.items():
+            (d / file).write_text(text)
+        dirs[name] = d
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        logs = dict(zip(dirs, pool.map(
+            lambda d: build.build_all([source], d), dirs.values())))
+    for name, log in logs.items():
+        print(f"  {name}: {ptxas_summary(log.get(source, ''))}")
+    launcher = ATTENTION_QKV_FWD if kernel == "k2" else ATTENTION_FWD
+    return {name: build.function(source, launcher.symbol, launcher.argtypes,
+                                 d)
+            for name, d in dirs.items()}
+
+
+def attention_variants(kernel: str, dev_name: str) -> dict:
+    """Each build of ATTENTION_BUILDS[kernel], each build's output held to
+    the plain version once, builds timed in turns (forward, then backward).
+    K2 at its main paths' shapes ((192, 50), (48, 197), (192, 197)) and at
+    L = 1025 and 2048, bf16; K4 at its main paths' (the tiny tower's (192,
+    50, 16) f32 and the tiny CE agent's (96, 50, 16) f32, ViT-H/14's (3072,
+    257, 80) bf16), at (2304, 197, 64) bf16, at the tiny tower's shape in
+    bf16 and at (64, 1025, 80) bf16. Returns {shape: {variant: [ms, ms]}}."""
+    fns = build_variants(kernel)
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = []
+    if kernel == "k2":
+        for b, length in ((CLIP_BATCH * VIEWS, 50), (48, 197),
+                          (CLIP_BATCH * VIEWS, 197), (4, 1025), (2, 2048)):
+            sets = [(torch.randn((b, length, 2304), generator=gen,
+                                 device="cuda").to(torch.bfloat16),
+                     torch.empty((b, length, 768), device="cuda",
+                                 dtype=torch.bfloat16))
+                    for _ in range(copies_for(b * length * 3072 * 2))]
+
+            def args(x, o, b=b, length=length):
+                return (x.data_ptr(), 1, o.data_ptr(), b, length, 12, 0.125)
+
+            x, o = sets[0]
+            cases.append((f"attention_qkv_fwd ({b}, {length}, 2304) bf16",
+                          sets, args, o, ATT.attention_qkv_plain(x, 12),
+                          attn_atol(x.dtype, x[..., 1536:])))
+    else:
+        for bh, length, hd, dtype in (
+                (4 * VIEWS * 4, 50, 16, torch.float32),
+                (2 * VIEWS * 4, 50, 16, torch.float32),
+                (CLIP_BATCH * VIEWS * 16, 257, 80, torch.bfloat16),
+                (CLIP_BATCH * VIEWS * 12, 197, 64, torch.bfloat16),
+                (4 * VIEWS * 4, 50, 16, torch.bfloat16),
+                (64, 1025, 80, torch.bfloat16)):
+            code = 0 if dtype == torch.float32 else 1
+            size = 2 if dtype == torch.bfloat16 else 4
+            sets = [tuple(torch.randn((bh, length, hd), generator=gen,
+                                      device="cuda").to(dtype)
+                          for _ in range(4))
+                    for _ in range(copies_for(4 * bh * length * hd * size))]
+
+            def args(*t, code=code, bh=bh, length=length, hd=hd):
+                return attn_args(t, code, bh, length, hd)
+
+            q, k, v, o = sets[0]
+            cases.append((f"attention_fwd ({bh}, {length}, {hd}) "
+                          f"{str(dtype)[6:]}", sets, args, o,
+                          ATT.attention_plain(q, k, v), attn_atol(dtype, v)))
+    out = {}
+    for case, sets, args, o, want, atol in cases:
+        def call(fn, *a, args=args):
+            err = fn(*args(*a), stream)
+            require(err == 0, f"{case}: launch failed: cudaError {err}")
+
+        for name, fn in fns.items():
+            o.zero_()
+            call(fn, *sets[0])
+            torch.testing.assert_close(o.float(), want.float(), rtol=0.0,
+                                       atol=atol)
+        got = {name: [] for name in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for name in order:
+                got[name].append(rotating_ms(
+                    lambda *a, fn=fns[name]: call(fn, *a), sets))
+        out[case] = got
+        print(f"  {case}: " + ", ".join(f"{n} {v[0]:.5f} / {v[1]:.5f}"
+                                        for n, v in got.items())
+              + f" ms [{dev_name}]")
+    return out
+
+
 def ce_profile(out):
     """One fused CE step (4 envs, full width, view tower) and one CE update
     (4 envs x 20 steps, dropout off), each traced after a warm-up."""
@@ -835,12 +1082,19 @@ def main() -> int:
     ap.add_argument("--k1-shapes", action="store_true",
                     help="only time K1 over its launch shapes and builds "
                          "on the main paths' inputs")
+    ap.add_argument("--k2-builds", action="store_true",
+                    help="only time builds of K2 that differ in one place")
+    ap.add_argument("--k4-builds", action="store_true",
+                    help="only time builds of K4 that differ in one place")
     ap.add_argument("--changing-ops", action="store_true",
                     help="only name the operators of a train loss whose "
                          "outputs change from run to run")
     ap.add_argument("--ab", type=Path, default=None, metavar="OTHER_TREE",
-                    help="only time K1, K3, K4, K5a and K5b against "
+                    help="only time K1, K2, K3, K4, K5a and K5b against "
                          "OTHER_TREE's sources")
+    ap.add_argument("--only", nargs="+", choices=AB_KERNELS,
+                    default=list(AB_KERNELS),
+                    help="with --ab: the kernels to time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -851,20 +1105,29 @@ def main() -> int:
     print(f"card: {dev_name}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    if args.k2_builds or args.k4_builds:
+        for kernel in ("k2", "k4"):
+            if getattr(args, f"{kernel}_builds"):
+                found = attention_variants(kernel, dev_name)
+                (out_dir / f"chip_profile_{kernel}_builds.json").write_text(
+                    json.dumps({"card": dev_name, "ms": found}, indent=1))
+        return 0
     if args.changing_ops:
         found = changing_ops(dev_name)
         (out_dir / "chip_profile_changing_ops.json").write_text(json.dumps(
             {"card": dev_name, "operators": found}, indent=1))
         return 0
     if args.k1_shapes or args.ab is not None:
-        paths = main_path_pool_inputs(dev_name)
+        paths = (main_path_pool_inputs(dev_name)
+                 if args.k1_shapes or "pool" in args.only else {})
         if args.k1_shapes:
             found = {"shapes": k1_launch_shapes(dev_name, paths),
                      "builds": k1_variants(dev_name, paths)}
             (out_dir / "chip_profile_k1_shapes.json").write_text(json.dumps(
                 {"card": dev_name, "ms": found}, indent=1))
         if args.ab is not None:
-            result = ab_kernels(args.ab.resolve(), dev_name, paths)
+            result = ab_kernels(args.ab.resolve(), dev_name, paths,
+                                args.only)
             (out_dir / "chip_profile_ab.json").write_text(json.dumps(
                 {"card": dev_name, "other": str(args.ab), "ms": result},
                 indent=1))

@@ -17,7 +17,10 @@ Phases, in order (any failure raises and the exit code is not 0):
       at odd widths and on an x off a 16-byte boundary), packed-qkv
       attention (K2: bf16 on the tensor cores, also at L = 1, 17 and 64; f32
       on the CUDA cores), per-head attention (K4: hd 1 to 256 with L = 1,
-      17, 50 and 197, and hd 80 at L = 257) and the two passes of the
+      17, 50 and 197, and hd 80 at L = 257), both where K and V stream
+      through their ring (K2 at L = 1025 and 2048, K4 at L = 700 and 1025
+      and at hd 320 and 1024, past what K and V in shared memory once
+      held), and the two passes of the
       pool's backward (K5a, K5b, also at an odd N and on ids off an 8-byte
       boundary); then K1, K5a and K5b where the JAX pool takes a buffer that
       they once refused (rows of 40,000 points at D = 768 in f32 and
@@ -122,8 +125,10 @@ Phases, in order (any failure raises and the exit code is not 0):
         process: train_navigator(mesh=...) at r2r width for 2 iterations,
         `pretrain --mesh auto --preset r2r` for one update and `run_ce
         --mesh auto --full` for one batch, each against the same run
-        without a mesh on the same seed within 1e-6 relative (a mesh of one
-        rank runs no gradient collective; the loss's global counts and the
+        without a mesh on the same seed within 1e-6 relative
+        (train_navigator: its losses, the first update's gradients and
+        every leaf's weights after; a mesh of one rank runs no gradient
+        collective; the loss's global counts and the
         stray-key max are NCCL all-reduces over the group of one); then two
         ranks on the one card over gloo (spawned; NCCL refuses two ranks on
         one device): one make_train_step update at r2r width, 16
@@ -136,7 +141,9 @@ Phases, in order (any failure raises and the exit code is not 0):
       K5b held to equal bits over two calls at each shape timed; LayerNorm
       at the tower's and the tiny tower's widths in both types; K4 at the
       tiny tower's, B/16's and ViT-H/14's shapes beside SDPA on 4-D inputs
-      with its backend named; the launch floor beside the pool backward's
+      with its backend named; K2 at (4, 1025) and (2, 2048) and K4 at (64,
+      1025, 80) and (16, 600, 320), in both types, beside SDPA's fastest
+      backend; the launch floor beside the pool backward's
       pass 2), encode
       and pipeline views/s, the pipeline's peak device memory,
       the serving step time (the graphed create engine, the eager one and
@@ -172,7 +179,8 @@ Phases, in order (any failure raises and the exit code is not 0):
       CE shapes; K1, K2 and K3 with an `int8` entry, the kernels of the
       mesh runs with a `mesh` entry: launches on the one-rank mesh and on
       each of the two gloo ranks; each kernel's launches in phase f's
-      entry points under `entry_points`); (h) the result line, last.
+      entry points under `entry_points`; K2 and K4 with a `long` entry,
+      their times at phase e's long shapes); (h) the result line, last.
 
 `python3 chip_smoke.py --ce-only` runs (a), (b) and the VLN-CE phases
 alone and prints no result line; `--entry-only` runs (a), (b) and (f).
@@ -1275,25 +1283,32 @@ def attn_atol(dtype, v):
     return 2.0 ** -6 * v.float().abs().max().item()
 
 
-# K4's (hd, L) cases: every padded width of both bodies (hd 1 to 256, 20 and
-# 200 off a 16-byte row) at the edges of the 16-key and 64-query tiles, and
-# ViT-H/14's (80, 257)
-ATTN_CASES = tuple((hd, length)
-                   for hd in (1, 16, 20, 48, 64, 80, 128, 200, 256)
-                   for length in (1, 17, 50, 197)) + ((80, 257),)
+# K4's (hd, L, slices) cases: every padded width of both bodies (hd 1 to
+# 256, 20 and 200 off a 16-byte row) at the edges of the 16-key and
+# 64-query tiles, and ViT-H/14's (80, 257), on 768 slices; then K and V
+# streamed through the ring (L = 700 and 1025) and hd above 256 (the wide
+# kernels), on fewer slices, so that the plain version's (BH, L, L) scores
+# stay small
+ATTN_CASES = (tuple((hd, length, 768)
+                    for hd in (1, 16, 20, 48, 64, 80, 128, 200, 256)
+                    for length in (1, 17, 50, 197)) + ((80, 257, 768),)
+              + ((80, 1025, 64), (1, 1025, 64), (256, 700, 64),
+                 (320, 600, 16), (320, 17, 16), (1024, 60, 16)))
+# K2's (B, L) cases past what K and V in shared memory once held
+QKV_LONG_CASES = ((4, 1025), (2, 2048))
 
 
 def check_attention_kernels(report):
-    """(c) K2 at clip_b32 (192, 50, 2304) and B/16 (32, 197, 2304), and in
-    bf16 (the tensor-core body) at L = 1, 17 and 64, the edges of its
-    16-key and 64-query tiles; K4 on 768 slices at ATTN_CASES; both dtypes.
+    """(c) K2 at clip_b32 (192, 50, 2304), B/16 (32, 197, 2304) and
+    QKV_LONG_CASES, and in bf16 (the tensor-core body) at L = 1, 17 and 64,
+    the edges of its 16-key and 64-key tiles; K4 at ATTN_CASES; both dtypes.
     Inputs at scale 2.0 give peaked softmaxes, so a fragment read from the
     wrong lane shows."""
     rng = np.random.default_rng(12)
     worst = {"attention_qkv_fwd": 0.0, "attention_fwd": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         edges = ((8, 1), (8, 17), (8, 64)) if dtype == torch.bfloat16 else ()
-        for b, length in ((192, 50), (32, 197)) + edges:
+        for b, length in ((192, 50), (32, 197)) + edges + QKV_LONG_CASES:
             qkv = torch.from_numpy((rng.standard_normal((b, length, 2304))
                                     * 2.0).astype(np.float32)).to("cuda",
                                                                   dtype)
@@ -1312,8 +1327,8 @@ def check_attention_kernels(report):
                   f"{str(dtype)[6:]:8s}: max|diff| {err:.3e} "
                   f"(atol {atol:.3e})")
         gen = torch.Generator(device="cuda").manual_seed(12)
-        for hd, length in ATTN_CASES:
-            q, k, v = ((2.0 * torch.randn((768, length, hd), generator=gen,
+        for hd, length, bh in ATTN_CASES:
+            q, k, v = ((2.0 * torch.randn((bh, length, hd), generator=gen,
                                           device="cuda")).to(dtype)
                        for _ in range(3))
             got = ATTENTION_FWD(q, k, v)
@@ -1327,7 +1342,7 @@ def check_attention_kernels(report):
                 rtol=2e-5 if atol == 2e-5 else 0.0, atol=atol)
             err = (got.float() - want.float()).abs().max().item()
             worst["attention_fwd"] = max(worst["attention_fwd"], err)
-            print(f"  attention_fwd (768, {length}, {hd}) "
+            print(f"  attention_fwd ({bh}, {length}, {hd}) "
                   f"{str(dtype)[6:]:8s}: max|diff| {err:.3e} "
                   f"(atol {atol:.3e})")
             del q, k, v, got, want
@@ -1682,22 +1697,6 @@ def compare_grads(got, want, rel, what):
         if scale > floor:
             worst = max(worst, err / scale)
     return worst
-
-
-def noise_leaves(grads):
-    """The leaves whose gradient lies within compare_grads' floor (1e-6 of
-    the largest leaf's max) in every update of `grads`, a list of {name:
-    gradient}: rounding noise, such as a bias added to every logit of a
-    softmax. Adam steps such a leaf by up to ~lr whichever sign the noise
-    takes, so its weights after the update say nothing of the update. A
-    leaf whose gradient is exactly 0 throughout is not among them."""
-    quiet, moved = None, set()
-    for g in grads:
-        floor = 1e-6 * max(t.abs().max().item() for t in g.values())
-        q = {n for n, t in g.items() if t.abs().max().item() <= floor}
-        quiet = q if quiet is None else quiet & q
-        moved |= {n for n, t in g.items() if t.any()}
-    return (quiet or set()) & moved
 
 
 @contextlib.contextmanager
@@ -2437,15 +2436,15 @@ def sdpa_packed(qkv, heads=12):
     return qkv.view(b, length, 3, heads, 64).permute(2, 0, 3, 1, 4)
 
 
-def time_qkv_case(rng, b, length, dev_name):
-    """K2 at (b, length, 2304) bf16 beside SDPA on the (B, H, L, hd) views
-    of the packed projection: each backend that takes them is timed, and
-    the fastest is the yardstick, named."""
+def time_qkv_case(rng, b, length, dev_name, dtype=torch.bfloat16):
+    """K2 at (b, length, 2304) in `dtype` beside SDPA on the (B, H, L, hd)
+    views of the packed projection: each backend that takes them is timed,
+    and the fastest is the yardstick, named."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    bf16 = torch.bfloat16
-    nbytes = b * length * 2304 * 2 + b * length * 768 * 2
-    sets = [(_cuda_normal(rng, (b, length, 2304), bf16),)
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = b * length * 2304 * size + b * length * 768 * size
+    sets = [(_cuda_normal(rng, (b, length, 2304), dtype),)
             for _ in range(copies_for(nbytes))]
     libraries = {}
     for backend in (SDPBackend.FLASH_ATTENTION,
@@ -2461,10 +2460,10 @@ def time_qkv_case(rng, b, length, dev_name):
         libraries[backend.name] = (rotating_ms(library, sets), library)
     name = min(libraries, key=lambda k: libraries[k][0])
     out = time_kernel(
-        f"({b}, {length}, 2304) bf16", ATTENTION_QKV_FWD,
+        f"({b}, {length}, 2304) {str(dtype)[6:]}", ATTENTION_QKV_FWD,
         lambda x: ATTENTION_QKV_FWD(x, 12),
         lambda x: ATT.attention_qkv_plain(x, 12), libraries[name][1], sets,
-        nbytes, 4 * b * 12 * length * length * 64, bf16, dev_name)
+        nbytes, 4 * b * 12 * length * length * 64, dtype, dev_name)
     out["library"] = f"F.scaled_dot_product_attention, {name}"
     out["library_backends_ms"] = {k: v[0] for k, v in libraries.items()}
     print(f"    library: SDPA on (B, H, L, hd) views, the fastest backend "
@@ -2473,14 +2472,16 @@ def time_qkv_case(rng, b, length, dev_name):
     return out
 
 
-def time_attention_case(rng, bh, length, hd, dtype, dev_name):
+def time_attention_case(rng, bh, length, hd, dtype, dev_name,
+                        fastest=False):
     """K4 at (bh, length, hd) in `dtype` beside SDPA on 4-D (1, BH, L, hd)
-    views, its backend pinned (f32: memory-efficient; bf16: flash)."""
+    views, its backend pinned (f32: memory-efficient; bf16: flash), or,
+    with `fastest`, the fastest backend that takes them."""
     size = 2 if dtype == torch.bfloat16 else 4
     nbytes = 4 * bh * length * hd * size
     sets = [tuple(_cuda_normal(rng, (bh, length, hd), dtype)
                   for _ in range(3)) for _ in range(copies_for(nbytes))]
-    sdpa, backend = sdpa_4d(*sets[0])
+    sdpa, backend = sdpa_4d(*sets[0], fastest=sets if fastest else None)
     out = time_kernel(
         f"({bh}, {length}, {hd}) {str(dtype)[6:]}", ATTENTION_FWD,
         ATTENTION_FWD, ATT.attention_plain, sdpa, sets, nbytes,
@@ -2517,16 +2518,37 @@ def time_encoder_kernels(dev_name):
             (CLIP_BATCH * VIEWS * 12, 197, 64, bf16, "attention_fwd_p16"),
             (CLIP_BATCH * VIEWS * 16, 257, 80, bf16, "attention_fwd_h14")):
         out[key] = time_attention_case(rng, bh, length, hd, dtype, dev_name)
+    out.update(time_long_attention(rng, dev_name))
     return out
 
 
-def sdpa_4d(q, k, v):
+def time_long_attention(rng, dev_name):
+    """(e) K2 and K4 where K and V outgrow what shared memory once held (no
+    main path runs them; towers at 448 px would): K2 at QKV_LONG_CASES and
+    K4 at (64, 1025, 80) and, hd above 256, (16, 600, 320), in both types,
+    each beside SDPA's fastest backend."""
+    out = {}
+    for b, length in QKV_LONG_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            out[f"attention_qkv_fwd_L{length}_{str(dtype)[6:]}"] = \
+                time_qkv_case(rng, b, length, dev_name, dtype)
+    for bh, length, hd in ((64, 1025, 80), (16, 600, 320)):
+        for dtype in (torch.bfloat16, torch.float32):
+            out[f"attention_fwd_L{length}_hd{hd}_{str(dtype)[6:]}"] = \
+                time_attention_case(rng, bh, length, hd, dtype, dev_name,
+                                    fastest=True)
+    return out
+
+
+def sdpa_4d(q, k, v, fastest=None):
     """F.scaled_dot_product_attention on (1, BH, L, hd) views of (BH, L, hd)
     tensors (the fused backends take 4-D inputs only), pinned to the first
-    backend that takes them: flash, memory-efficient, cuDNN, math. Returns
-    (call, backend name)."""
+    backend that takes them: flash, memory-efficient, cuDNN, math; or, given
+    `fastest` (the timing's input sets), the fastest of those that take
+    them. Returns (call, backend name)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    taken = {}
     for backend in (SDPBackend.FLASH_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION,
                     SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
@@ -2542,8 +2564,14 @@ def sdpa_4d(q, k, v):
                                    ATT.attention_plain(q, k, v).float(),
                                    rtol=0.0, atol=attn_atol(q.dtype, v)
                                    if q.dtype == torch.bfloat16 else 1e-2)
-        return call, backend.name
-    raise RuntimeError("no SDPA backend takes these inputs")
+        if fastest is None:
+            return call, backend.name
+        taken[backend.name] = (rotating_ms(call, fastest), call)
+    require(taken, "no SDPA backend takes these inputs")
+    name = min(taken, key=lambda n: taken[n][0])
+    print(f"    SDPA backends that take them: "
+          f"{ {n: round(t[0], 5) for n, t in taken.items()} } ms")
+    return taken[name][1], f"{name}, the fastest"
 
 
 def time_encode_and_pipeline(ex, model, cfg, dev_name):
@@ -3099,9 +3127,9 @@ INT8_R2R_TOL = 5e-2
 # test_misc.py's token cosine for the tower
 INT8_COS, INT8_SPREAD, CLIP_INT8_COS = 0.99, 0.2, 0.98
 # a mesh of one rank against the run without it: the same kernels on the
-# same seeds; only the order of PyTorch's atomics may move last bits (the
-# scatter_add that backs the fused logits' torch.gather, models/
-# navigator.py:354; the pool's kernels sum in a fixed order)
+# same seeds, every sum in a fixed order (the pool's kernels; the fused
+# logits' gather and the embeddings' backward, models/layers.py), so the
+# bits should agree; the tolerance is what the check held before they did
 MESH_REL_TOL = 1e-6
 # the two-rank update: dropout off (the ranks draw different masks), Adam
 # eps 1e-2 (a zero gradient's rounding noise would decide a whole +-lr at
@@ -3416,24 +3444,20 @@ def mesh_train_navigator(out):
     grad_worst = compare_grads(g1[0], g0[0], MESH_REL_TOL,
                                "train_navigator with a mesh: gradients of "
                                "the first update")
-    # the weights after the two updates, likewise, but for the leaves whose
-    # gradient was rounding noise in every update of the run without a
-    # mesh (the key biases, and the biases of the global action head's last
-    # two layers, which add the same to every logit of its softmax): Adam
-    # steps those by up to ~lr on the noise's sign, which the backward of
-    # the fused logits' torch.gather (models/navigator.py:354) sets anew in
-    # each run: on the card it is PyTorch's scatter_add, which adds with
-    # atomics (chip_profile.py --changing-ops names it), so their gradients
-    # above hold them. The pool's kernels give the same bits on every
-    # run.
-    quiet = noise_leaves(g0)
+    # the weights after the two updates of every leaf, likewise, those
+    # whose gradient is rounding noise too (the key biases, and the biases
+    # of the global action head's last two layers, which add the same to
+    # every logit of its softmax; Adam steps them by up to ~lr on the
+    # noise's sign): every operator of the update sums in a fixed order
+    # (the pool's kernels, the fused logits' gather and the embeddings'
+    # backward, models/layers.py; chip_profile.py --changing-ops names
+    # none), so the two runs' noise is the same
     # how many leaves the two runs give different bits, update by update
     bits_apart = [sum(not torch.equal(a[k], b[k]) for k in b)
                   for a, b in zip(g1, g0)]
     weights_apart = sum(not torch.equal(s1[k], s0[k]) for k in s0)
-    worst = compare_grads({k: v for k, v in s1.items() if k not in quiet},
-                          {k: v for k, v in s0.items() if k not in quiet},
-                          MESH_REL_TOL, "train_navigator with a mesh: weights")
+    worst = compare_grads(s1, s0, MESH_REL_TOL,
+                          "train_navigator with a mesh: weights")
     for n in ("grid_pool_fwd", "grid_pool_bwd1", "grid_pool_bwd2"):
         require(launches[n] > 0, f"{n} did not launch under the mesh")
     print(f"  train_navigator(mesh=(1, 1) over NCCL), r2r width, "
@@ -3441,10 +3465,9 @@ def mesh_train_navigator(out):
           f"every leaf of the first update's gradients and of the weights "
           f"after within {MESH_REL_TOL} of its max plus 1e-6 of the largest "
           f"leaf's max (worst ratio over the leaves above that floor: "
-          f"gradients {grad_worst:.2e}, weights {worst:.2e}; {len(quiet)} "
-          f"leaves with a rounding-noise gradient held by their gradients "
-          f"alone: {sorted(quiet)}); leaves whose gradients differ in bits, "
-          f"by update: {bits_apart}, weights after: {weights_apart}; "
+          f"gradients {grad_worst:.2e}, weights {worst:.2e}); leaves whose "
+          f"gradients differ in bits, by update: {bits_apart}, weights "
+          f"after: {weights_apart}; "
           f"launches "
           f"{launches}; {out['train_navigator_s_mesh']:.2f}s against "
           f"{out['train_navigator_s_plain']:.2f}s without")
@@ -3452,7 +3475,6 @@ def mesh_train_navigator(out):
     out["train_navigator"] = {"losses": l1, "plain_losses": l0,
                               "grads_worst_rel": grad_worst,
                               "weights_worst_rel": worst,
-                              "noise_leaves": sorted(quiet),
                               "grad_leaves_apart": bits_apart,
                               "weight_leaves_apart": weights_apart}
     return launches
@@ -4174,6 +4196,13 @@ def main(argv=None) -> int:
         for field in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms"):
             report[name][field] = timing[key][field]
+    # K2 and K4 where K and V stream through the ring (no path's shape)
+    for name in ("attention_qkv_fwd", "attention_fwd"):
+        report[name]["long"] = [
+            {f: timing[key][f] for f in ("shape", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "library")}
+            for key in timing if key.startswith(f"{name}_L")]
     # the pretraining path's launches (its multi-task CLI run) and times
     for name, key in (("grid_pool_fwd", "pretrain_B8_f32"),
                       ("grid_pool_bwd1", "pretrain_bwd1"),
@@ -4229,7 +4258,7 @@ def main(argv=None) -> int:
         {key: report[k.name][key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "pretrain", "ce", "int8", "mesh", "entry_points")
+            "pretrain", "ce", "int8", "mesh", "entry_points", "long")
             if key in report[k.name]}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,34 @@ from gridmm_tpu_torch.ops.quant import int8_dense_q, quantize_per_channel
 from gridmm_tpu_torch.parallel.tp import TensorParallel, all_max
 
 
+class _FixedOrderGather(torch.autograd.Function):
+    """torch.gather(src, 1, index) whose backward adds the gradients of a
+    repeated index in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, src, index):
+        ctx.save_for_backward(index)
+        ctx.width = src.shape[1]
+        return torch.gather(src, 1, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        hit = index[:, :, None] == torch.arange(ctx.width,
+                                                device=index.device)
+        return torch.where(hit, grad[:, :, None],
+                           grad.new_zeros(())).sum(dim=1), None
+
+
+def gather_fixed_order(src, index):
+    """torch.gather(src, 1, index) for (B, N) src and (B, G) int64 index: the
+    same values, and a gradient that sums the G rows of a one-hot (B, G, N)
+    mask in a fixed order, where torch.gather's backward (scatter_add) adds
+    a repeated index's gradients with atomics on the card, in an order that
+    changes from run to run. G x N is small (the fused logits' 64 x 40)."""
+    return _FixedOrderGather.apply(src, index)
+
+
 def gelu_erf(x):
     """BERT's exact-erf gelu (vilmodel.py:47-53)."""
     return x * 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
@@ -59,16 +87,45 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
+class _FixedOrderEmbedding(torch.autograd.Function):
+    """F.embedding(ids, weight) whose backward adds the gradients of a
+    repeated id in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        ids = ids.reshape(-1)
+        grad = grad.reshape(ids.numel(), -1)
+        order = torch.argsort(ids, stable=True)
+        # row r's segment starts at the first sorted id >= r: rows no id
+        # hits are empty segments, whose sum is 0 (no data-dependent shape,
+        # so the host never waits on the card)
+        offsets = torch.searchsorted(
+            ids[order], torch.arange(ctx.rows + 1, device=ids.device,
+                                    dtype=ids.dtype))
+        return None, torch.segment_reduce(grad[order], "sum",
+                                          offsets=offsets, unsafe=True)
+
+
 class Embedding(nn.Embedding):
     """nn.Embedding whose table may be sharded over the vocabulary (`tp`,
-    set by parallel/mesh.py for the word embeddings)."""
+    set by parallel/mesh.py for the word embeddings). Its gradient sums the
+    rows of a repeated id in a fixed order (the ids sorted stably, then a
+    segment sum), where nn.Embedding's backward on the card adds them in an
+    order that changes from run to run."""
 
     tp: Optional[TensorParallel] = None
 
     def forward(self, ids):
         if self.tp is not None:
             return self.tp.embedding(ids, self.weight)
-        return super().forward(ids)
+        return _FixedOrderEmbedding.apply(ids, self.weight)
 
 
 class Int8Dense(Dense):
@@ -278,8 +335,8 @@ class BertEmbeddings(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
-                                                cfg.hidden_size)
+        self.position_embeddings = Embedding(cfg.max_position_embeddings,
+                                             cfg.hidden_size)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
         self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
         self.compute_dtype = cfg.dtype

@@ -25,7 +25,8 @@ from torch import nn
 from gridmm_tpu_torch.config import ModelConfig
 from gridmm_tpu_torch.models.layers import (BertEmbeddings, BertLayer,
                                             ClsPrediction, CrossmodalEncoder,
-                                            Dense, LayerNorm, PreNormEncoder,
+                                            Dense, Embedding, LayerNorm,
+                                            PreNormEncoder, gather_fixed_order,
                                             init_weights)
 from gridmm_tpu_torch.ops.grid_pool import grid_pool, instruction_relevance
 from gridmm_tpu_torch.ops.masking import (attn_bias_from_mask,
@@ -81,7 +82,7 @@ class ImageEmbeddings(nn.Module):
             self.obj_layer_norm = LayerNorm(hs, 1e-12)
         self.loc_linear = Dense(cfg.angle_feat_size + 3, hs, dt)
         self.loc_layer_norm = LayerNorm(hs, 1e-12)
-        self.nav_type_embedding = nn.Embedding(3, hs)
+        self.nav_type_embedding = Embedding(3, hs)
         self.layer_norm = LayerNorm(hs, 1e-12)
         self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
         if cfg.num_pano_layers > 0:
@@ -144,7 +145,7 @@ class GridMMNavigator(nn.Module):
         self.cfg = cfg
         hs, dt = cfg.hidden_size, cfg.dtype
         # shared token-type table (text id 0, panorama id 1)
-        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, hs)
+        self.token_type_embeddings = Embedding(cfg.type_vocab_size, hs)
         self.embeddings = BertEmbeddings(cfg)
         self.lang_encoder = LanguageEncoder(cfg)
         self.img_embeddings = ImageEmbeddings(cfg)
@@ -157,7 +158,7 @@ class GridMMNavigator(nn.Module):
         # global branch (GlobalMapEncoder, vilmodel.py:577-660)
         self.gmap_pos_dense = Dense(cfg.angle_feat_size + 3, hs, dt)
         self.gmap_pos_ln = LayerNorm(hs, 1e-12)
-        self.gmap_step_embeddings = nn.Embedding(cfg.max_action_steps, hs)
+        self.gmap_step_embeddings = Embedding(cfg.max_action_steps, hs)
         # grid branch (vilmodel.py:691-703)
         self.grid_encoder = PreNormEncoder(cfg, 1)
         self.grid_txt_encoder = CrossmodalEncoder(cfg, 1, lang_branch=False)
@@ -351,7 +352,7 @@ class GridMMNavigator(nn.Module):
                                 torch.zeros_like(local_logits)).sum(dim=1)
 
         fai = fused_add_idx.long()
-        gathered = torch.gather(local_logits, 1, fai.clamp(min=0))
+        gathered = gather_fixed_order(local_logits, fai.clamp(min=0))
         zero = torch.zeros_like(gathered)
         add = torch.where(fai >= 0, gathered,
                           torch.where(fai == -1, bw_logits[:, None].expand_as(

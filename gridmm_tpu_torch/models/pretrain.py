@@ -27,7 +27,7 @@ from torch import nn
 
 from gridmm_tpu_torch.config import ModelConfig
 from gridmm_tpu_torch.models.layers import (ACT2FN, ClsPrediction, Dense,
-                                            LayerNorm)
+                                            LayerNorm, gather_fixed_order)
 from gridmm_tpu_torch.models.navigator import GridMMNavigator
 from gridmm_tpu_torch.ops.masking import compaction_stray_count, mask_logits
 
@@ -261,7 +261,7 @@ class GridMMPretrain(nn.Module):
         zero = torch.zeros_like(local_logits)
         bw = torch.where(bt, local_logits, zero).sum(dim=1)
         fai = fused_add_idx.long()
-        gathered = torch.gather(local_logits, 1, fai.clamp(min=0))
+        gathered = gather_fixed_order(local_logits, fai.clamp(min=0))
         add = torch.where(fai >= 0, gathered,
                           torch.where(fai == -1, bw[:, None], 0.0))
         slot = torch.arange(fused.shape[1], device=fused.device)[None, :]

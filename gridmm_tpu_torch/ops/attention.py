@@ -12,8 +12,9 @@ head_dim 64 goes to the packed-qkv kernel (csrc/attention_qkv_fwd.cu, the
 only head_dim `fused_attention_qkv` takes), every other head_dim is split
 into (B*H, L, hd) and goes to the per-head kernel (csrc/attention_fwd.cu).
 Both kernels run bf16 inputs on the tensor cores (bf16 products, f32
-accumulators) and f32 inputs on the CUDA cores; the per-head kernel takes
-any head_dim from 1 to 256. Both kernels keep scores
+accumulators) and f32 inputs on the CUDA cores, and both take any sequence
+length (K and V stream through shared memory); the per-head kernel takes
+any head_dim. Both kernels keep scores
 and softmax in f32 on chip, so `scores_f32` (the JAX `attn_scores_f32` knob,
 which trades score precision for bytes moved) only changes the plain version.
 

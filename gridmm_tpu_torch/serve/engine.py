@@ -76,30 +76,44 @@ def _end_generator_capture(device) -> None:
         x.add_(1.0)
 
 
-def _shard_for_rank(mesh: dict, state_dict, batch: int):
+def _shard_for_rank(mesh: dict, state_dict, batch: int, device):
     """A sharded bundle's share for this rank: (its slices of the full
-    state dict, its rank, its slots). Raises unless this process is a rank
-    of a world of the bundle's data x model size whose mesh groups carry
-    the recorded names."""
+    state dict, its rank, its slots). The process group's world must have
+    the bundle's data x model ranks. Where this process lacks the process
+    groups the programs name (the exporting process's), it makes the mesh
+    itself (parallel.mesh.make_mesh, the bundle's shape) and registers each
+    of its groups under the recorded name, as JAX's sharded export needs
+    only as many devices."""
     import torch.distributed as dist
+    from torch._C._distributed_c10d import _register_process_group
     from torch.distributed.distributed_c10d import _resolve_process_group
 
-    from gridmm_tpu_torch.parallel.mesh import local_slice
+    from gridmm_tpu_torch.config import MeshConfig
+    from gridmm_tpu_torch.parallel.mesh import local_slice, make_mesh
 
     dp, mp = mesh["data"], mesh["model"]
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if world != dp * mp:
+    if not dist.is_initialized() or world != dp * mp:
         raise ValueError(f"bundle exported for a {dp}x{mp} mesh "
-                         f"({dp * mp} ranks); this world has {world}")
+                         f"({dp * mp} ranks); this world has {world}"
+                         + ("" if dist.is_initialized() else " (no process "
+                            "group: init_process_group first)"))
     rank = dist.get_rank()
-    for axis, name in mesh["groups"][rank].items():
-        try:
-            _resolve_process_group(name)
-        except (KeyError, ValueError, RuntimeError) as e:
-            raise ValueError(
-                f"rank {rank}'s {axis} collectives run on process group "
-                f"{name!r}, which this process does not have: make the "
-                f"{dp}x{mp} mesh first (parallel.mesh.make_mesh)") from e
+
+    def missing():
+        out = []
+        for axis, name in mesh["groups"][rank].items():
+            try:
+                _resolve_process_group(name)
+            except (KeyError, ValueError, RuntimeError):
+                out.append((axis, name))
+        return out
+
+    if missing():
+        made = make_mesh(MeshConfig(dp_size=dp, mp_size=mp), device)
+        groups = {"data": made.get_group(0), "model": made.get_group(1)}
+        for axis, name in missing():
+            _register_process_group(name, groups[axis])
     pls = mesh["placements"]
     shards = {k: local_slice(v, tuple(pls[k]), dp, mp, rank // mp, rank % mp)
               if k in pls else v for k, v in state_dict.items()}
@@ -181,12 +195,12 @@ class NavServingEngine:
         weights they are given at every step.
 
         A sharded bundle (export_navigator_serving_sharded) runs on every
-        rank of the (data, model) mesh it was exported for, with the same
-        process groups (made in the same order, e.g. by
-        parallel.mesh.make_mesh); each rank loads its programs, keeps its
-        slices of the full `state_dict` and serves batch / dp slots (the
-        ranks of one model group take the same requests). Under another
-        world or other groups it raises."""
+        rank of a process group's world of the bundle's data x model size;
+        where the process has not made the (data, model) mesh the programs'
+        collectives name, from_bundle makes it. Each rank loads its
+        programs, keeps its slices of the full `state_dict` and serves
+        batch / dp slots (the ranks of one model group take the same
+        requests). Under a world of another size it raises."""
         import json
         import os
 
@@ -207,7 +221,7 @@ class NavServingEngine:
         mesh = manifest.get("mesh")
         if mesh is not None:
             state_dict, rank, batch = _shard_for_rank(mesh, state_dict,
-                                                      batch)
+                                                      batch, device)
             files = {k: v.format(rank=rank) for k, v in files.items()}
         lang = load_exported(os.path.join(bundle_dir, files["language"])
                              ).module()

@@ -119,11 +119,14 @@ def test_attention_qkv_matches_jax(b, l, heads):
                  rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("b,l,heads", [(4, 1, 2), (3, 17, 4)])
+@pytest.mark.parametrize("b,l,heads", [(4, 1, 2), (3, 17, 4), (1, 500, 2),
+                                       (1, 800, 2)])
 def test_attention_qkv_plain_matches_jax_at_tile_edges(b, l, heads):
-    """L = 1 and 17, the edges of the CUDA kernel's 16-key tiles: its oracle
-    `attention_qkv_plain` against the Pallas kernel in interpret mode (one
-    image a block: L is no multiple of 8) and the einsum path, within 2e-5."""
+    """L = 1 and 17, the edges of the CUDA kernel's 16-key tiles, and L =
+    500 and 800, past what a head's K and V in shared memory once allowed
+    (the kernel now streams them): its oracle `attention_qkv_plain` against
+    the Pallas kernel in interpret mode (one image a block: L is no multiple
+    of 8) and the einsum path, within 2e-5."""
     rng = np.random.default_rng(b + l)
     qkv = rng.standard_normal((b, l, 3 * heads * 64)).astype(np.float32)
     got = attention_qkv_plain(torch.from_numpy(qkv), heads)
@@ -137,16 +140,39 @@ def test_attention_qkv_plain_matches_jax_at_tile_edges(b, l, heads):
         assert_close(got, qkv[..., 2 * heads * 64:], rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("hd", [1, 16, 20, 48, 64, 80, 128, 200])
-def test_attention_matches_jax(hd):
-    rng = np.random.default_rng(hd)
-    q, k, v = (rng.standard_normal((6, 33, hd)).astype(np.float32)
+@pytest.mark.parametrize("hd,l", [(hd, 33) for hd in (1, 16, 20, 48, 64, 80,
+                                                      128, 200)]
+                         + [(80, 700), (320, 60)])
+def test_attention_matches_jax(hd, l):
+    """head_dim 1 to 200 at L = 33; hd 80 at L = 700 (K and V stream
+    through the CUDA kernel's ring) and hd 320 (its wide kernel, 128 output
+    columns a work item), against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(hd + l)
+    q, k, v = (rng.standard_normal((6, l, hd)).astype(np.float32)
                for _ in range(3))
     got = attention(*to_torch((q, k, v)))
     want = jax_attention.fused_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads_per_block=4,
         interpret=True)
     assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("hd,dtype,packed", [
+    (64, "bfloat16", True), (64, "float32", True), (16, "float32", False),
+    (80, "bfloat16", False), (256, "bfloat16", False), (256, "float32", False),
+    (320, "bfloat16", False), (320, "float32", False)])
+def test_attention_kernels_shared_memory_is_the_same_at_every_length(
+        hd, dtype, packed):
+    """A block's shared memory as the CUDA launchers set it (`_smem_bytes`,
+    mirrored on the CPU and held to the launchers' own on the card by
+    tests/test_torch_cuda.py): the ring's, the same at L = 50, 197, 2048
+    and 100,000 and within the 232,448 bytes a block may use."""
+    from gridmm_tpu_torch.ops.cuda.attention import MAX_SMEM, _smem_bytes
+
+    dt = getattr(torch, dtype)
+    got = {n: _smem_bytes(n, hd, dt, packed) for n in (50, 197, 2048, 100000)}
+    assert len(set(got.values())) == 1, got
+    assert 0 < got[50] <= MAX_SMEM
 
 
 TOWERS = {
@@ -170,6 +196,12 @@ TOWERS = {
                                  width=160, layers=2, heads=2,
                                  compute_dtype="float32"),
              dict(use_pallas_attention=True, use_pallas_ln=True)),
+    # 785 tokens (patch 8 at 224 px, ViT-B/16 at 448 px's count): one layer,
+    # width 128, head_dim 64; past what K and V in shared memory once took
+    "long": (JV.ClipVisionConfig(input_resolution=224, patch_size=8,
+                                 width=128, layers=1, heads=2,
+                                 compute_dtype="float32"),
+             dict(use_qkv_attention=True, use_pallas_ln=True)),
 }
 
 

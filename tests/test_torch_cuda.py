@@ -500,11 +500,17 @@ def _attn_tol(dtype, v):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,heads", [(192, 50, 12), (32, 197, 12),
                                        (3, 7, 2), (2, 1, 1), (5, 17, 3),
-                                       (4, 64, 2), (2, 65, 12), (1, 400, 1)])
+                                       (4, 64, 2), (2, 65, 12), (1, 400, 1),
+                                       (3, 129, 2), (2, 193, 3),
+                                       (4, 1025, 12), (2, 2048, 12),
+                                       (1, 5000, 2)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_qkv_kernel_matches_plain(b, l, heads, dtype):
     """bf16 runs on the tensor cores, f32 on the CUDA cores; L = 1, 17, 64
-    and 65 sit on the edges of the 16-key and 64-query tiles."""
+    and 65 sit on the edges of the 16-key and 64-key tiles, 129 and 193 on
+    those of a bf16 block's query rows (5 and 7 warps) and past its ring
+    of two tiles; at L = 1025, 2048 and 5000 K and V stream through the
+    ring many times over."""
     _require_card()
     from gridmm_tpu_torch.ops.attention import attention_qkv_plain
     from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_QKV_FWD
@@ -522,9 +528,16 @@ def test_attention_qkv_kernel_matches_plain(b, l, heads, dtype):
 
 
 # K4's cases: every padded width of both bodies and the edges of the 16-key
-# and 64-query tiles (L = 1, 17, 50, 197), and ViT-H/14's (257, 80)
-ATTN_CASES = [(hd, l) for hd in (1, 16, 20, 48, 64, 80, 128, 200, 256)
-              for l in (1, 17, 50, 197)] + [(80, 257)]
+# and 64-query tiles (L = 1, 17, 50, 197), and ViT-H/14's (257, 80); K and
+# V streamed through the ring (L = 700, 1025, 2048 where a slice's tiles
+# outgrow it); hd above 256 (the wide kernels, 128 output columns a work
+# item, K in 128-column chunks: 257, 320, 500 and 1024)
+ATTN_CASES = ([(hd, l) for hd in (1, 16, 20, 48, 64, 80, 128, 200, 256)
+               for l in (1, 17, 50, 197)] + [(80, 257)]
+              + [(hd, 700) for hd in (16, 48, 80, 128, 200, 256)]
+              + [(1, 1025), (80, 1025), (64, 2048)]
+              + [(hd, l) for hd in (257, 320, 500, 1024)
+                 for l in (1, 17, 60, 600)])
 
 
 @pytest.mark.cuda
@@ -552,12 +565,14 @@ def test_attention_kernel_matches_plain(hd, l, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,l,hd", [(3000, 17, 20), (3000, 50, 64),
-                                     (1000, 197, 200)])
+                                     (1000, 197, 200), (600, 400, 80),
+                                     (200, 150, 320)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernel_many_slices(bh, l, hd, dtype):
     """More slices than blocks in flight: a bf16 block walks several work
-    items (with the next one's K and V staged behind at L = 17 and 50), an
-    f32 block several slices at L = 17."""
+    items (with the next one's K and V staged behind at L = 17 and 50, and
+    streamed through its ring at L = 400), an f32 block several slices at
+    L = 17; the wide kernels many (slice, share, query rows) items."""
     _require_card()
     from gridmm_tpu_torch.ops.attention import attention_plain
     from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_FWD
@@ -614,10 +629,6 @@ def test_attention_kernels_count_launches_and_reject_bad_input():
         ATTENTION_QKV_FWD(qkv.half(), 4)
     with pytest.raises(ValueError):               # not contiguous
         ATTENTION_QKV_FWD(qkv.transpose(0, 1), 4)
-    with pytest.raises(ValueError):               # K and V overflow smem
-        ATTENTION_QKV_FWD(torch.zeros((1, 1000, 3 * 64), device="cuda"), 1)
-    with pytest.raises(ValueError):               # hd above 256
-        ATTENTION_FWD(*(torch.zeros((8, 50, 257), device="cuda"),) * 3)
     with pytest.raises(ValueError):               # shapes differ
         ATTENTION_FWD(q, q[:4], q)
     with pytest.raises(ValueError):
@@ -629,6 +640,94 @@ def test_attention_kernels_count_launches_and_reject_bad_input():
         ATTENTION_FWD(x, x, x)
     assert (ATTENTION_QKV_FWD.launches, ATTENTION_FWD.launches) == (
         before[0] + 1, before[1] + 3)
+    # K and V past what shared memory once held, and hd above 256: refused
+    # before K and V streamed through a ring; now they run, and match the
+    # plain versions
+    from gridmm_tpu_torch.ops.attention import (attention_plain,
+                                                attention_qkv_plain)
+    rng = np.random.default_rng(1000)
+    long = torch.from_numpy(rng.standard_normal((1, 1000, 3 * 64)).astype(
+        np.float32)).cuda()
+    torch.testing.assert_close(ATTENTION_QKV_FWD(long, 1),
+                               attention_qkv_plain(long, 1),
+                               **_attn_tol(torch.float32, long))
+    wide = [torch.from_numpy(rng.standard_normal((8, 50, 257)).astype(
+        np.float32)).cuda() for _ in range(3)]
+    torch.testing.assert_close(ATTENTION_FWD(*wide), attention_plain(*wide),
+                               **_attn_tol(torch.float32, wide[2]))
+    assert (ATTENTION_QKV_FWD.launches, ATTENTION_FWD.launches) == (
+        before[0] + 2, before[1] + 4)
+
+
+@pytest.mark.cuda
+def test_attention_shared_memory_mirror_matches_the_launchers():
+    """ops/cuda/attention._smem_bytes, which the CPU tests check, against
+    the launchers' own (`gridmm_attention_fwd_smem`,
+    `gridmm_attention_qkv_fwd_smem`) at every hd up to 299 and a few above,
+    in both types."""
+    _require_card()
+    import ctypes
+
+    from gridmm_tpu_torch.ops.cuda import build
+    from gridmm_tpu_torch.ops.cuda.attention import _smem_bytes
+
+    per_head = build.function("attention_fwd", "gridmm_attention_fwd_smem",
+                              [ctypes.c_int, ctypes.c_int])
+    packed = build.function("attention_qkv_fwd",
+                            "gridmm_attention_qkv_fwd_smem", [ctypes.c_int])
+    for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+        assert packed(code) == _smem_bytes(50, 64, dtype, packed=True)
+        for hd in [*range(1, 300), 320, 384, 500, 1024]:
+            assert per_head(code, hd) == _smem_bytes(50, hd, dtype), (
+                hd, dtype)
+
+
+@pytest.mark.cuda
+def test_fixed_order_gradients_match_torch_and_repeat_on_the_card():
+    """The fused logits' gather and the embedding tables (models/layers.py)
+    on the card: the values of torch.gather and nn.Embedding, gradients
+    within 1e-5 of theirs (sums over repeats taken in another order), the
+    same bits on a second run, and 0 in rows no id hits."""
+    _require_card()
+    from gridmm_tpu_torch.models.layers import Embedding, gather_fixed_order
+
+    rng = np.random.default_rng(11)
+    src = torch.from_numpy(rng.standard_normal((16, 40)).astype(
+        np.float32)).cuda()
+    index = torch.from_numpy(rng.integers(-8, 40, size=(16, 64))).cuda()
+    index = index.clamp(min=0)
+    gout = torch.from_numpy(rng.standard_normal((16, 64)).astype(
+        np.float32)).cuda()
+    ids = torch.from_numpy(rng.integers(0, 300, size=(16, 80))).cuda()
+    eout = torch.from_numpy(rng.standard_normal((16, 80, 768)).astype(
+        np.float32)).cuda()
+    ref_table = torch.nn.Embedding(1000, 768).cuda()
+
+    def grads():
+        s = src.clone().requires_grad_(True)
+        out = gather_fixed_order(s, index)
+        out.backward(gout)
+        table = Embedding(1000, 768).cuda()
+        table.load_state_dict(ref_table.state_dict())
+        e = table(ids)
+        e.backward(eout)
+        return out, s.grad, e, table.weight.grad
+
+    out, sgrad, e, egrad = grads()
+    s = src.clone().requires_grad_(True)
+    want = torch.gather(s, 1, index)
+    want.backward(gout)
+    assert torch.equal(out, want)
+    torch.testing.assert_close(sgrad, s.grad, rtol=1e-5, atol=1e-5)
+    ref_table.zero_grad()
+    want_e = ref_table(ids)
+    want_e.backward(eout)
+    assert torch.equal(e, want_e)
+    torch.testing.assert_close(egrad, ref_table.weight.grad, rtol=1e-5,
+                               atol=1e-5)
+    assert (egrad[300:] == 0).all()
+    _, sgrad2, _, egrad2 = grads()
+    assert torch.equal(sgrad, sgrad2) and torch.equal(egrad, egrad2)
 
 
 # ------------------------------------------ the op, the graphed step, bundles

@@ -157,3 +157,51 @@ def test_cls_prediction():
     x = _rand(rng, B, LQ, 2 * H)
     _check(JL.ClsPrediction(JCFG), TL.ClsPrediction(TCFG, input_size=2 * H),
            (x,))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gather_fixed_order_matches_torch_gather(seed):
+    """The fused logits' gather (models/navigator.py, models/pretrain.py):
+    the values of torch.gather, and its gradient on indices with repeats
+    (clamp(min=0) sends every non-candidate slot to index 0), with -inf
+    among the gathered logits as masked slots give them. The gradient of a
+    repeated index is a sum taken in another order than scatter_add's:
+    within 1e-6 (a few ulps of the ~5-wide sums)."""
+    from gridmm_tpu_torch.models.layers import gather_fixed_order
+
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((6, 40)).astype(np.float32)
+    src[:, 30:] = -np.inf
+    idx = rng.integers(-2, 12, size=(6, 64))
+    grad = rng.standard_normal((6, 64)).astype(np.float32)
+    got, want = (torch.tensor(src, requires_grad=True) for _ in range(2))
+    index = torch.from_numpy(idx).clamp(min=0)
+    out = gather_fixed_order(got, index)
+    ref = torch.gather(want, 1, index)
+    assert torch.equal(out, ref)
+    out.backward(torch.from_numpy(grad))
+    ref.backward(torch.from_numpy(grad))
+    assert (index == 0).sum() > 6 and got.grad.shape == want.grad.shape
+    torch.testing.assert_close(got.grad, want.grad, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("vocab", [3, 512])
+def test_embedding_gradient_sums_repeats_like_nn_embedding(vocab):
+    """models/layers.Embedding (the word, position, token-type, nav-type and
+    step tables): the values of nn.Embedding, and its gradient, whose rows
+    of a repeated id are a segment sum over the ids sorted stably, within
+    1e-6 of nn.Embedding's (rows a table never sees stay 0)."""
+    rng = np.random.default_rng(vocab)
+    ids = torch.from_numpy(rng.integers(0, min(vocab, 40), size=(12, 39)))
+    grad = torch.from_numpy(rng.standard_normal((12, 39, 16)).astype(
+        np.float32))
+    ours = TL.Embedding(vocab, 16)
+    ref = torch.nn.Embedding(vocab, 16)
+    ref.load_state_dict(ours.state_dict())
+    out, want = ours(ids), ref(ids)
+    assert torch.equal(out, want)
+    out.backward(grad)
+    want.backward(grad)
+    torch.testing.assert_close(ours.weight.grad, ref.weight.grad, rtol=1e-6,
+                               atol=1e-6)
+    assert (ours.weight.grad[40:] == 0).all()

@@ -98,6 +98,23 @@ def test_sharded_bundle_serves_the_live_engines_logits(sharded, fsdp):
                                            err_msg=f"rank {rank} {s} {f}")
 
 
+def test_sharded_bundle_makes_its_own_mesh(sharded):
+    """A process that holds none of the process groups the programs name
+    (the ranks destroyed their mesh's) serves the bundle: from_bundle makes
+    the (data, model) mesh itself and gives the bits the ranks gave with
+    the exporting mesh."""
+    _, _, ranks, _ = sharded
+    for rank, res in enumerate(ranks):
+        got, want = res["remade"], res[False]
+        assert sorted(got["lost"]) == sorted(got["names"])
+        assert got["rows"] == want["rows"]
+        for s in range(STEPS):
+            for f in FIELDS:
+                np.testing.assert_array_equal(got["steps"][s][f],
+                                              want["steps"][s][f],
+                                              err_msg=f"rank {rank} {s} {f}")
+
+
 def test_sharded_export_refuses_an_indivisible_batch_and_another_world(
         sharded):
     tcfg, dirs, ranks, _ = sharded

@@ -198,8 +198,12 @@ def sharded_bundle_case(rank, world, out_dirs, texts, rows, steps):
     programs over a (world / 2, 2) mesh at batch 4, serve them with
     from_bundle on this rank's data shard of the requests (texts, rows:
     numpy, one per request and step) and return each step's outputs
-    (numpy); first, the batch % dp refusal's message."""
+    (numpy); first, the batch % dp refusal's message. Last, the mesh's
+    process groups are destroyed, so that this process no longer holds the
+    groups the programs name, and the first bundle is served again without
+    a make_mesh ("remade": from_bundle makes the mesh itself)."""
     import torch
+    from torch.distributed.distributed_c10d import _resolve_process_group
 
     from gridmm_tpu_torch.config import MeshConfig, tiny_config
     from gridmm_tpu_torch.models.navigator import init_navigator
@@ -241,6 +245,32 @@ def sharded_bundle_case(rank, world, out_dirs, texts, rows, steps):
                          "grid_logits")})
         out[fsdp] = {"rows": list(mine), "steps": got,
                      "slots": eng.batch}
+    del eng
+    torch.distributed.barrier()
+    groups = (mesh.get_group(0), mesh.get_group(1))
+    names = [g.group_name for g in groups]
+    for g in groups:
+        torch.distributed.destroy_process_group(g)
+    lost = []
+    for name in names:
+        try:
+            _resolve_process_group(name)
+        except (KeyError, ValueError, RuntimeError):
+            lost.append(name)
+    eng = NavServingEngine.from_bundle(out_dirs[0], cfg,
+                                       dict(model.state_dict()), len(texts),
+                                       device="cpu")
+    for slot, r in enumerate(mine):
+        eng.submit(slot, *texts[r])
+    eng.admit()
+    got = []
+    for s in range(steps):
+        o = eng.step({slot: rows[r][s] for slot, r in enumerate(mine)})
+        got.append({f: getattr(o, f).numpy() for f in
+                    ("global_logits", "local_logits", "fused_logits",
+                     "grid_logits")})
+    out["remade"] = {"rows": list(mine), "steps": got, "lost": lost,
+                     "names": names}
     torch.distributed.barrier()
     return out
 
