@@ -1,0 +1,17 @@
+"""Mean device time of an admission over the profiled stretch of steps: the
+two timing events of the program's `serve.admit` span (its recorder,
+gridmm_tpu_torch/utils/logging.py), from the first copy of ids and mask to
+the last row write. None without a card or without the recorder."""
+
+
+def read(record):
+    if not record.get("trace"):
+        return None
+    try:
+        from gridmm_tpu_torch.utils.logging import profiled_stretch
+    except ImportError:  # a program without the recorder
+        return None
+    times = [s.device_ms() for s in profiled_stretch().named("serve.admit")]
+    if not times or None in times:
+        return None
+    return sum(times) / len(times)

@@ -24,6 +24,11 @@ a `torch.cuda.CUDAGraph` when the engine is made and replayed by every
 `step()`: the port's counterpart of the JAX engine's single jitted dispatch.
 A capture that fails raises; nothing falls back to eager. On the CPU, and
 with `cuda_graph=False`, the step runs eagerly.
+
+Under a torch.profiler the admission and the step record the spans and
+counters of utils/logging.span (`serve.admit`, `serve.step` with its
+`assemble` and `replay`); the admission's and the step's carry the ids of
+the requests they served.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from gridmm_tpu_torch.train.step import (NavCarry, StepInputs, init_carry,
                                          nav_device_step)
 from gridmm_tpu_torch.utils.export import (carry_to_dict, dict_to_carry,
                                            zero_step_inputs)
+from gridmm_tpu_torch.utils.logging import span
 
 
 def serving_cfg(cfg):
@@ -151,6 +157,9 @@ class NavServingEngine:
                 for a in self._x)) if on_card else self._x
         self._zero_row = StepInputs(*(
             a[:1].cpu().numpy() for a in self._x))
+        # what a step's copies move (on the CPU the concatenations write
+        # the step's buffers themselves)
+        self._h2d_bytes = sum(a.nbytes for a in self._x_host)
         self._copied: Optional[torch.cuda.Event] = None
         self._queue: deque = deque()
         self._slot_req: List[Optional[object]] = [None] * batch
@@ -312,7 +321,7 @@ class NavServingEngine:
             self._req_slot[req_id] = slot
             admitted[req_id] = slot
         dev = self.device
-        with torch.inference_mode():
+        with span("serve.admit", dev) as sp, torch.inference_mode():
             ids_t = torch.as_tensor(ids, device=dev)
             mask_t = torch.as_tensor(mask, device=dev)
             rows = torch.as_tensor(list(admitted.values()), device=dev)
@@ -320,6 +329,10 @@ class NavServingEngine:
             self._mask_buf[rows] = mask_t[rows]
             for buf in _carry_tensors(self._carry):
                 buf[rows] = 0
+            if sp is not None:
+                sp.attrs["ids"] = list(admitted)
+                sp.count("serve.admit.rows_admitted", len(admitted))
+                sp.count("serve.admit.rows_encoded", len(ids))
         return admitted
 
     def finish(self, req_id) -> None:
@@ -332,23 +345,28 @@ class NavServingEngine:
         StepInputs of host arrays} for (a subset of) active slots; free or
         absent slots run the zero row. Returns NavOutputs, leading dim B,
         fresh tensors the next step does not overwrite."""
-        if self._copied is not None:
-            self._copied.synchronize()  # the pinned buffers are free again
-        with torch.inference_mode():
-            for f, host, buf in zip(StepInputs._fields, self._x_host,
-                                    self._x):
-                parts = [np.asarray(getattr(rows[s], f)) if s in rows
-                         else getattr(self._zero_row, f)
-                         for s in range(self.batch)]
-                np.concatenate(parts, axis=0, out=host.numpy())
-                if host is not buf:
-                    buf.copy_(host, non_blocking=True)
-            if self.device.type == "cuda":
-                self._copied = torch.cuda.Event()
-                self._copied.record()
-            if self._graph is None:
-                return self._run_step()
-            self._graph.replay()
+        with span("serve.step") as sp, torch.inference_mode():
+            if sp is not None:
+                sp.attrs["ids"] = list(self._req_slot)
+                sp.count("serve.step.h2d_bytes", self._h2d_bytes)
+            if self._copied is not None:
+                self._copied.synchronize()  # the pinned buffers are free
+            with span("serve.step.assemble"):
+                for f, host, buf in zip(StepInputs._fields, self._x_host,
+                                        self._x):
+                    parts = [np.asarray(getattr(rows[s], f)) if s in rows
+                             else getattr(self._zero_row, f)
+                             for s in range(self.batch)]
+                    np.concatenate(parts, axis=0, out=host.numpy())
+                    if host is not buf:
+                        buf.copy_(host, non_blocking=True)
+                if self.device.type == "cuda":
+                    self._copied = torch.cuda.Event()
+                    self._copied.record()
+            with span("serve.step.replay", self.device):
+                if self._graph is None:
+                    return self._run_step()
+                self._graph.replay()
             self.replays += 1
             return NavOutputs(*(None if t is None else t.clone()
                                 for t in self._graph_out))

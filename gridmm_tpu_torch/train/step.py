@@ -32,6 +32,7 @@ from gridmm_tpu_torch.ops import geometry as G
 from gridmm_tpu_torch.parallel.mesh import ShardedParams
 from gridmm_tpu_torch.train.losses import cross_entropy_ignore
 from gridmm_tpu_torch.train.optimizers import ChainOptimizer
+from gridmm_tpu_torch.utils.logging import span
 
 
 class StepInputs(NamedTuple):
@@ -470,17 +471,22 @@ def make_train_step(cfg: GridMMConfig):
 
     def train_step(state: TrainState, batch: TrajectoryBatch,
                    seed: int = 0) -> Dict[str, torch.Tensor]:
-        state.optimizer.zero_grad(set_to_none=True)
-        sp = state.sharded
-        with _update_scope(state, seed, state.step, batch.txt_ids.device):
-            loss = trajectory_loss(state.model, cfg, batch, sharded=sp)
-            loss.backward()
-            if sp is not None:
-                sp.reduce_grads()
-        state.optimizer.step()
-        state.step += 1
-        return {"loss": sp.global_sum(loss) if sp else loss.detach(),
-                "grad_norm": state.optimizer.last_grad_norm}
+        with span("train.update"):
+            state.optimizer.zero_grad(set_to_none=True)
+            sp = state.sharded
+            with _update_scope(state, seed, state.step,
+                               batch.txt_ids.device):
+                with span("train.forward"):
+                    loss = trajectory_loss(state.model, cfg, batch,
+                                           sharded=sp)
+                with span("train.backward"):
+                    loss.backward()
+                    if sp is not None:
+                        sp.reduce_grads()
+            state.optimizer.step()
+            state.step += 1
+            return {"loss": sp.global_sum(loss) if sp else loss.detach(),
+                    "grad_norm": state.optimizer.last_grad_norm}
 
     return train_step
 
