@@ -5,8 +5,10 @@ step graph with static shapes:
 
   * ``submit()`` queues a request (instruction token ids);
   * ``admit()`` packs queued requests into free slots: one language forward
-    over the B rows, a row-write of the admitted rows into the resident
-    (B, T, D) text buffer, and a zero-reset of their episode carry;
+    over the k admitted rows (over all B rows where the forward couples its
+    rows or takes only B: see `admit`), a row-write of the admitted rows
+    into the resident (B, T, D) text buffer, and a zero-reset of their
+    episode carry;
   * ``step()`` takes per-slot StepInputs rows, runs the navigation step once
     for all slots and returns outputs with leading dim B;
   * ``finish()`` frees a slot for the next admission.
@@ -141,6 +143,11 @@ class NavServingEngine:
         self.device = torch.device(device)
         self._lang_fn = lang_fn
         self._step_fn = step_fn
+        # the live f32/bf16 trunk encodes each row on its own and takes any
+        # row count; an int8 trunk's activation scale is an absmax over the
+        # whole batch, and a bundle's language program is traced at B rows
+        self._encode_admitted_only = (model is not None
+                                      and not self.cfg.model.int8_matmuls)
         t, d = self.cfg.shapes.max_txt_len, self.cfg.model.hidden_size
         on_card = self.device.type == "cuda"
         with torch.inference_mode():
@@ -304,29 +311,45 @@ class NavServingEngine:
         return dict(self._req_slot)
 
     def admit(self) -> Dict[object, int]:
-        """Admit queued requests into free slots with one language forward
-        over the B rows; returns {req_id: slot} for the new ones."""
+        """Admit queued requests into free slots; returns {req_id: slot} for
+        the new ones. A live engine without int8 matmuls runs one language
+        forward over the k admitted rows, in slot order; an int8 engine and
+        a bundle's engine run it over all B rows, zeros in the slots not
+        admitted, and keep the admitted rows. Either way the rows of other
+        slots in the text buffer stay as they are."""
         free = self.free_slots()
         if not free or not self._queue:
             return {}
-        t = self.cfg.shapes.max_txt_len
-        ids = np.zeros((self.batch, t), np.int32)
-        mask = np.zeros((self.batch, t), bool)
         admitted: Dict[object, int] = {}
+        texts = []
         for slot in free:
             if not self._queue:
                 break
-            req_id, ids[slot], mask[slot] = self._queue.popleft()
+            req_id, ids, mask = self._queue.popleft()
             self._slot_req[slot] = req_id
             self._req_slot[req_id] = slot
             admitted[req_id] = slot
+            texts.append((ids, mask))
+        slots = list(admitted.values())
+        if self._encode_admitted_only:
+            ids = np.stack([i for i, _ in texts])
+            mask = np.stack([m for _, m in texts])
+        else:
+            t = self.cfg.shapes.max_txt_len
+            ids = np.zeros((self.batch, t), np.int32)
+            mask = np.zeros((self.batch, t), bool)
+            for slot, (i, m) in zip(slots, texts):
+                ids[slot], mask[slot] = i, m
         dev = self.device
         with span("serve.admit", dev) as sp, torch.inference_mode():
             ids_t = torch.as_tensor(ids, device=dev)
             mask_t = torch.as_tensor(mask, device=dev)
-            rows = torch.as_tensor(list(admitted.values()), device=dev)
-            self._txt_buf[rows] = self._lang_fn(ids_t, mask_t)[rows]
-            self._mask_buf[rows] = mask_t[rows]
+            rows = torch.as_tensor(slots, device=dev)
+            txt = self._lang_fn(ids_t, mask_t)
+            if not self._encode_admitted_only:
+                txt, mask_t = txt[rows], mask_t[rows]
+            self._txt_buf[rows] = txt
+            self._mask_buf[rows] = mask_t
             for buf in _carry_tensors(self._carry):
                 buf[rows] = 0
             if sp is not None:

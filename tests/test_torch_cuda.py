@@ -823,6 +823,52 @@ def test_graphed_serving_step_matches_eager():
 
 
 @pytest.mark.cuda
+def test_graphed_engine_admitting_rows_alone_matches_full_batch_admissions():
+    """A 16-slot graphed engine whose admissions encode only the rows they
+    admit (16, then 1, then 3) against one whose admissions encode all 16
+    rows: every served step's four logit heads within 1e-5 x max|logit|,
+    -inf at the same places."""
+    _require_card()
+    from gridmm_tpu_torch.config import tiny_config
+    from gridmm_tpu_torch.models.navigator import init_navigator
+    from gridmm_tpu_torch.serve.engine import NavServingEngine
+
+    cfg, slots = tiny_config(), 16
+    model = init_navigator(cfg.model, seed=2, device="cuda")
+    texts, rows = _tiny_engine_inputs(cfg, n_req=slots + 4, seed=3)
+    t = cfg.shapes.max_txt_len
+
+    def drive(eng):
+        lang, seen = eng._lang_fn, []
+        eng._lang_fn = lambda i, m: seen.append(tuple(i.shape)) or lang(i, m)
+        for r, (ids, mask) in enumerate(texts):
+            eng.submit(r, ids, mask)
+        outs, done, admitted = [], {r: 0 for r in range(len(texts))}, []
+        for finish in ([], [0], [1, 2, 3], []):
+            for r in finish:
+                eng.finish(r)
+            admitted.append(len(eng.admit()))
+            active = eng.active()
+            out = eng.step({s: rows[r][done[r]] for r, s in active.items()})
+            outs.append({f: getattr(out, f).cpu() for f in
+                         ("fused_logits", "global_logits", "local_logits",
+                          "grid_logits")})
+            for r in active:
+                done[r] += 1
+        assert admitted == [slots, 1, 3, 0]
+        return outs, seen
+
+    rows_alone = NavServingEngine.create(model, cfg, slots)
+    every_row = NavServingEngine.create(model, cfg, slots)
+    every_row._encode_admitted_only = False
+    got, seen = drive(rows_alone)
+    want, seen_all = drive(every_row)
+    assert seen == [(slots, t), (1, t), (3, t)]
+    assert seen_all == [(slots, t)] * 3
+    _assert_outs_close(got, want)
+
+
+@pytest.mark.cuda
 def test_graph_capture_failure_raises():
     """A step that waits on the host cannot be captured: the engine raises
     and does not run eager in its place; dropout on the card still draws

@@ -4,20 +4,30 @@ Five requests go through a 3-slot engine of each package with the same
 weights (carried by gridmm_tpu_torch.convert) and the same step rows: two
 start together, one slot idles on zero rows, finished requests free their
 slots mid-flight and queued ones take them. Every step's per-slot outputs
-agree within 1e-5 absolute and relative, -inf positions exactly."""
+agree within 1e-5 absolute and relative, -inf positions exactly.
 
+An admission's language forward: a live f32 engine encodes only the rows it
+admits, an int8 engine and a bundle's engine all B rows; in every kind the
+admitted rows of the text buffer hold the bits of the B-row forward and the
+other rows stay as they were."""
+
+import dataclasses
 import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
+import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import gridmm_tpu.config as JC  # noqa: E402
 from gridmm_tpu.serve.engine import NavServingEngine as JEngine  # noqa: E402
+from gridmm_tpu_torch.models.navigator import init_navigator  # noqa: E402
 from gridmm_tpu_torch.ops.cuda.grid_pool import GRID_POOL_FWD  # noqa: E402
 from gridmm_tpu_torch.serve.engine import NavServingEngine as TEngine  # noqa: E402
 from gridmm_tpu_torch.serve.engine import serving_cfg  # noqa: E402
+from gridmm_tpu_torch.utils import export as TX  # noqa: E402
 from torch_parity import (assert_close, jax_navigator, port_config,  # noqa: E402
                           port_navigator, step_rows)
 
@@ -81,3 +91,70 @@ def test_engine_matches_jax_engine_under_staggered_admission():
     assert done == {r: n for r, n in enumerate(LENGTHS)}
     # CPU tensors never reach the kernel
     assert GRID_POOL_FWD.launches == launches
+
+
+SLOTS = 3
+# (requests finished, requests submitted) before each admission: 1, 2 and
+# SLOTS rows admitted, then 1 with another slot left free
+ROUNDS = [([], [0]), ([], [1, 2]), ([0, 1, 2], [3, 4, 5]), ([3, 5], [6])]
+
+
+def _admission_engine(kind, tmp_path):
+    """A tiny `create` engine (f32 or int8) or a `from_bundle` engine on the
+    weights of a seed."""
+    tcfg = port_config(JC.tiny_config())
+    if kind == "int8":
+        tcfg = dataclasses.replace(tcfg, model=dataclasses.replace(
+            tcfg.model, int8_matmuls=True))
+    model = init_navigator(tcfg.model, seed=4, device="cpu")
+    if kind != "bundle":
+        return TEngine.create(model, tcfg, SLOTS, device="cpu")
+    TX.save_serving_bundle(
+        TX.export_navigator_serving(model, tcfg, model.state_dict(),
+                                    batch=SLOTS, device="cpu"),
+        str(tmp_path), cfg=tcfg, extra_manifest={"batch": SLOTS})
+    return TEngine.from_bundle(str(tmp_path), tcfg, dict(model.state_dict()),
+                               SLOTS, device="cpu")
+
+
+@pytest.mark.parametrize("kind,encodes_admitted_only",
+                         [("f32", True), ("int8", False), ("bundle", False)])
+def test_admission_encodes_the_admitted_rows_where_rows_are_independent(
+        kind, encodes_admitted_only, tmp_path):
+    eng = _admission_engine(kind, tmp_path)
+    lang, seen = eng._lang_fn, []
+
+    def spy(ids, mask):
+        seen.append(tuple(ids.shape))
+        return lang(ids, mask)
+
+    eng._lang_fn = spy
+    rng = np.random.default_rng(3)
+    t = eng.cfg.shapes.max_txt_len
+    for done, new in ROUNDS:
+        for r in done:
+            eng.finish(r)
+        texts = {r: (rng.integers(1, 1000, size=t).astype(np.int32),
+                     np.arange(t) < rng.integers(3, t + 1)) for r in new}
+        for r in new:
+            eng.submit(r, *texts[r])
+        txt_before, mask_before = eng._txt_buf.clone(), eng._mask_buf.clone()
+        admitted = eng.admit()
+        assert sorted(admitted) == new
+        ids = np.zeros((SLOTS, t), np.int32)
+        mask = np.zeros((SLOTS, t), bool)
+        for r, slot in admitted.items():
+            ids[slot], mask[slot] = texts[r]
+        with torch.inference_mode():
+            want = lang(torch.from_numpy(ids), torch.from_numpy(mask))
+        for slot in range(SLOTS):
+            if slot in admitted.values():
+                assert torch.equal(eng._txt_buf[slot], want[slot]), slot
+                assert torch.equal(eng._mask_buf[slot],
+                                   torch.from_numpy(mask[slot])), slot
+            else:
+                assert torch.equal(eng._txt_buf[slot], txt_before[slot])
+                assert torch.equal(eng._mask_buf[slot], mask_before[slot])
+    rows = ([len(new) for _, new in ROUNDS] if encodes_admitted_only
+            else [SLOTS] * len(ROUNDS))
+    assert seen == [(k, t) for k in rows]

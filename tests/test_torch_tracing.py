@@ -145,7 +145,7 @@ def test_serving_spans_counters_and_request_ids():
     assert [sp.attrs["ids"] for sp in admits] == [
         list(range(SLOTS)), list(range(SLOTS, SLOTS + MORE))]
     assert [sp.counters for sp in admits] == [
-        {"serve.admit.rows_admitted": n, "serve.admit.rows_encoded": SLOTS}
+        {"serve.admit.rows_admitted": n, "serve.admit.rows_encoded": n}
         for n in (SLOTS, MORE)]
     steps = st.named("serve.step")
     assert len(steps) == 2
@@ -155,7 +155,7 @@ def test_serving_spans_counters_and_request_ids():
     assert h2d == sum(t.nbytes for t in eng._x) > 0
     assert all(sp.counters == {"serve.step.h2d_bytes": h2d} for sp in steps)
     assert st.counters == {"serve.admit.rows_admitted": SLOTS + MORE,
-                           "serve.admit.rows_encoded": 2 * SLOTS,
+                           "serve.admit.rows_encoded": SLOTS + MORE,
                            "serve.step.h2d_bytes": 2 * h2d}
     for child in ("serve.step.assemble", "serve.step.replay"):
         assert [sp.parent for sp in st.named(child)] == steps
