@@ -8,7 +8,7 @@ step graph with static shapes:
     over the k admitted rows (over all B rows where the forward couples its
     rows or takes only B: see `admit`), a row-write of the admitted rows
     into the resident (B, T, D) text buffer, and a zero-reset of their
-    episode carry;
+    episode carry, all in `_admit_rows(n)` over static admission buffers;
   * ``step()`` takes per-slot StepInputs rows, runs the navigation step once
     for all slots and returns outputs with leading dim B;
   * ``finish()`` frees a slot for the next admission.
@@ -24,19 +24,26 @@ inputs are static buffers: `step()` copies each input field into its buffer
 carry back into the carry's. On a CUDA device the step is captured once in
 a `torch.cuda.CUDAGraph` when the engine is made and replayed by every
 `step()`: the port's counterpart of the JAX engine's single jitted dispatch.
-A capture that fails raises; nothing falls back to eager. On the CPU, and
-with `cuda_graph=False`, the step runs eagerly.
+The admission is graphed too: `_admit_rows(n)` is captured beside the step
+for every row count n an admission can encode (1..B where it encodes only
+the admitted rows, B alone where it encodes all of them), the graphs
+sharing one memory pool, and `admit()` copies the ids, masks and slots into
+the admission's buffers and replays graph n. A capture that fails raises;
+nothing falls back to eager. On the CPU, and with `cuda_graph=False`, the
+step and `_admit_rows(n)` run eagerly over the same buffers.
 
 Under a torch.profiler the admission and the step record the spans and
 counters of utils/logging.span (`serve.admit`, `serve.step` with its
 `assemble` and `replay`); the admission's and the step's carry the ids of
-the requests they served.
+the requests they served, and the admission counts its calls and the ones
+that replayed a graph (`serve.admit.calls`, `serve.admit.replays`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
+from functools import partial
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -162,16 +169,31 @@ class NavServingEngine:
             self._x_host = StepInputs(*(
                 torch.empty_like(a, device="cpu", pin_memory=True)
                 for a in self._x)) if on_card else self._x
+            # the admission's inputs: token ids, masks and the slot each
+            # encoded row is written to (see `admit`)
+            self._admit_in = (
+                torch.zeros((batch, t), dtype=torch.int32,
+                            device=self.device),
+                torch.zeros((batch, t), dtype=torch.bool, device=self.device),
+                torch.zeros((batch,), dtype=torch.int64, device=self.device))
+            self._admit_host = tuple(
+                torch.zeros_like(a, device="cpu", pin_memory=True)
+                for a in self._admit_in) if on_card else self._admit_in
         self._zero_row = StepInputs(*(
             a[:1].cpu().numpy() for a in self._x))
         # what a step's copies move (on the CPU the concatenations write
         # the step's buffers themselves)
         self._h2d_bytes = sum(a.nbytes for a in self._x_host)
+        # the last copies out of the pinned buffers, which wait for them
+        # before they are written again
         self._copied: Optional[torch.cuda.Event] = None
+        self._admit_copied: Optional[torch.cuda.Event] = None
         self._queue: deque = deque()
         self._slot_req: List[Optional[object]] = [None] * batch
         self._req_slot: Dict[object, int] = {}
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+        # {rows encoded: the graph of `_admit_rows(rows)`}
+        self._admit_graphs: Dict[int, torch.cuda.CUDAGraph] = {}
         # kernel launches recorded by the capture (each replay repeats them)
         self.graph_launches: Dict[str, int] = {}
         self.replays = 0
@@ -267,11 +289,49 @@ class NavServingEngine:
                 dst.copy_(src)
         return out
 
+    def _admit_rows(self, n: int) -> None:
+        """The language forward over the first n rows of the admission's
+        buffers, written into the text and mask buffers at the slots of
+        the rows buffer, whose carry rows it zeroes. Where the engine
+        encodes all B rows (n = B, zeros in the slots not admitted), the
+        rows buffer lists the admitted slots, the first of them repeated
+        to length B, and only those rows are written. Keeps no output."""
+        ids, mask, rows = (a[:n] for a in self._admit_in)
+        txt = self._lang_fn(ids, mask)
+        if not self._encode_admitted_only:
+            txt, mask = txt[rows], mask[rows]
+        self._txt_buf[rows] = txt
+        self._mask_buf[rows] = mask
+        for buf in _carry_tensors(self._carry):
+            buf.index_fill_(0, rows, 0)
+
+    def _captured(self, fn, what: str, pool=None):
+        """(`fn()` captured in a CUDA graph, in `pool` where given; what
+        the capture returned). Raises if capture fails."""
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.inference_mode(), torch.cuda.graph(graph, pool=pool):
+                out = fn()
+        except Exception as e:
+            _end_generator_capture(self.device)
+            raise RuntimeError(f"CUDA-graph capture of the serving {what} "
+                               "failed; the engine does not run eager in "
+                               "its place (cuda_graph=False asks for "
+                               "eager)") from e
+        return graph, out
+
     def _capture(self):
-        """Warm the step up on a side stream over a copy of the carry (the
-        kernels build and load, libraries make their workspaces), then
-        capture it on the static buffers. Raises if capture fails."""
+        """Warm the step and the admission at every row count up on a side
+        stream (the kernels build and load, libraries make their
+        workspaces; the step over a copy of the carry, the admission's
+        writes undone after), then capture them on the static buffers: the
+        step in a graph of its own, the admissions in graphs that share one
+        memory pool (they never run at once, and none keeps an output).
+        Raises if a capture fails."""
         dev = self.device
+        # the row counts an admission may encode, largest first
+        counts = (range(self.batch, 0, -1) if self._encode_admitted_only
+                  else [self.batch])
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side), torch.inference_mode():
@@ -280,22 +340,24 @@ class NavServingEngine:
                 if isinstance(part, tuple) else part.clone()
                 for part in self._carry))
             self._step_fn(self._txt_buf, self._mask_buf, scratch, self._x)
+            written = (self._txt_buf, self._mask_buf,
+                       *_carry_tensors(self._carry))
+            kept = [t.clone() for t in written]
+            for n in counts:
+                self._admit_rows(n)
+            for t, k in zip(written, kept):
+                t.copy_(k)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
-        graph = torch.cuda.CUDAGraph()
         before = _kernel_launches()
-        try:
-            with torch.inference_mode(), torch.cuda.graph(graph):
-                out = self._run_step()
-        except Exception as e:
-            _end_generator_capture(dev)
-            raise RuntimeError("CUDA-graph capture of the serving step "
-                               "failed; the engine does not run eager in "
-                               "its place (cuda_graph=False asks for "
-                               "eager)") from e
+        self._graph, self._graph_out = self._captured(self._run_step, "step")
         after = _kernel_launches()
         self.graph_launches = {k: after[k] - before[k] for k in after}
-        self._graph, self._graph_out = graph, out
+        pool = torch.cuda.graph_pool_handle()
+        self._admit_graphs = {
+            n: self._captured(partial(self._admit_rows, n), "admission",
+                              pool)[0]
+            for n in counts}
 
     # ------------------------------------------------------------- requests
     def submit(self, req_id, txt_ids: np.ndarray,
@@ -316,7 +378,10 @@ class NavServingEngine:
         forward over the k admitted rows, in slot order; an int8 engine and
         a bundle's engine run it over all B rows, zeros in the slots not
         admitted, and keep the admitted rows. Either way the rows of other
-        slots in the text buffer stay as they are."""
+        slots in the text buffer stay as they are. The ids, masks and slots
+        go into the admission's buffers (one pinned copy each on the card)
+        and `_admit_rows(n)` runs on them: graph n's replay where the step
+        is graphed, else eagerly."""
         free = self.free_slots()
         if not free or not self._queue:
             return {}
@@ -331,31 +396,36 @@ class NavServingEngine:
             admitted[req_id] = slot
             texts.append((ids, mask))
         slots = list(admitted.values())
-        if self._encode_admitted_only:
-            ids = np.stack([i for i, _ in texts])
-            mask = np.stack([m for _, m in texts])
-        else:
-            t = self.cfg.shapes.max_txt_len
-            ids = np.zeros((self.batch, t), np.int32)
-            mask = np.zeros((self.batch, t), bool)
-            for slot, (i, m) in zip(slots, texts):
-                ids[slot], mask[slot] = i, m
-        dev = self.device
-        with span("serve.admit", dev) as sp, torch.inference_mode():
-            ids_t = torch.as_tensor(ids, device=dev)
-            mask_t = torch.as_tensor(mask, device=dev)
-            rows = torch.as_tensor(slots, device=dev)
-            txt = self._lang_fn(ids_t, mask_t)
-            if not self._encode_admitted_only:
-                txt, mask_t = txt[rows], mask_t[rows]
-            self._txt_buf[rows] = txt
-            self._mask_buf[rows] = mask_t
-            for buf in _carry_tensors(self._carry):
-                buf[rows] = 0
+        n = len(slots) if self._encode_admitted_only else self.batch
+        graph = self._admit_graphs.get(n)
+        with span("serve.admit", self.device) as sp, torch.inference_mode():
+            if self._admit_copied is not None:
+                self._admit_copied.synchronize()  # the pinned buffers are free
+            ids, mask, rows = (a.numpy() for a in self._admit_host)
+            if self._encode_admitted_only:
+                at = range(len(slots))
+            else:
+                at = slots
+                ids[:], mask[:], rows[:] = 0, False, slots[0]
+            for i, (t, m) in zip(at, texts):
+                ids[i], mask[i] = t, m
+            rows[:len(slots)] = slots
+            for host, buf in zip(self._admit_host, self._admit_in):
+                if host is not buf:
+                    buf[:n].copy_(host[:n], non_blocking=True)
+            if self.device.type == "cuda":
+                self._admit_copied = torch.cuda.Event()
+                self._admit_copied.record()
+            if graph is None:
+                self._admit_rows(n)
+            else:
+                graph.replay()
             if sp is not None:
                 sp.attrs["ids"] = list(admitted)
                 sp.count("serve.admit.rows_admitted", len(admitted))
-                sp.count("serve.admit.rows_encoded", len(ids))
+                sp.count("serve.admit.rows_encoded", n)
+                sp.count("serve.admit.calls", 1)
+                sp.count("serve.admit.replays", int(graph is not None))
         return admitted
 
     def finish(self, req_id) -> None:

@@ -822,6 +822,84 @@ def test_graphed_serving_step_matches_eager():
     assert graphed.replays == len(rows[0]) and eager.replays == 0
 
 
+HEADS = ("fused_logits", "global_logits", "local_logits", "grid_logits")
+
+
+def _drive_admissions(eng, texts, rows, slots):
+    """Submit every request, then four rounds of finishing requests,
+    admitting (slots, then 1, then 3, then 0 rows) and stepping every
+    active slot. Returns each step's four logit heads and the engine's
+    text, mask and carry buffers after it, on the host, and the rows each
+    admission encoded (`serve.admit.rows_encoded`, read under the
+    profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gridmm_tpu_torch.serve.engine import _carry_tensors
+    from gridmm_tpu_torch.utils.logging import profiled_stretch, span
+
+    with span("unprofiled") as sp:   # the profiled stretch starts anew
+        assert sp is None
+    for r, (ids, mask) in enumerate(texts):
+        eng.submit(r, ids, mask)
+    outs, done, admitted = [], {r: 0 for r in range(len(texts))}, []
+    with profile(activities=[ProfilerActivity.CPU]):
+        for finish in ([], [0], [1, 2, 3], []):
+            for r in finish:
+                eng.finish(r)
+            admitted.append(len(eng.admit()))
+            active = eng.active()
+            out = eng.step({s: rows[r][done[r]] for r, s in active.items()})
+            outs.append({f: getattr(out, f).cpu() for f in HEADS})
+            outs[-1]["state"] = [t.cpu() for t in (
+                eng._txt_buf, eng._mask_buf, *_carry_tensors(eng._carry))]
+            for r in active:
+                done[r] += 1
+    assert admitted == [slots, 1, 3, 0]
+    encoded = [sp.counters["serve.admit.rows_encoded"]
+               for sp in profiled_stretch().named("serve.admit")]
+    return outs, encoded
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_graphed_admissions_match_eager_admissions_bit_for_bit(int8):
+    """A 16-slot engine that replays its admissions from CUDA graphs
+    against a `cuda_graph=False` engine over the same model, admitting 16,
+    1, 3 and then 0 rows: the text, mask and carry buffers and every served
+    step's four logit heads are equal bit for bit. The step's graph records
+    what it did before; a live engine holds a graph for each of the 16 row
+    counts, an int8 engine one at 16 rows."""
+    _require_card()
+    import dataclasses
+
+    from gridmm_tpu_torch.config import tiny_config
+    from gridmm_tpu_torch.models.navigator import init_navigator
+    from gridmm_tpu_torch.serve.engine import NavServingEngine
+
+    cfg, slots = tiny_config(), 16
+    if int8:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, int8_matmuls=True))
+    model = init_navigator(cfg.model, seed=2, device="cuda")
+    texts, rows = _tiny_engine_inputs(cfg, n_req=slots + 4, seed=3)
+    graphed = NavServingEngine.create(model, cfg, slots)
+    eager = NavServingEngine.create(model, cfg, slots, cuda_graph=False)
+    assert graphed.graph_launches == {"grid_pool_fwd": 1}
+    assert sorted(graphed._admit_graphs) == ([slots] if int8 else
+                                             list(range(1, slots + 1)))
+    assert not eager._admit_graphs
+    got, encoded = _drive_admissions(graphed, texts, rows, slots)
+    want, encoded_eager = _drive_admissions(eager, texts, rows, slots)
+    assert encoded == encoded_eager == ([slots] * 3 if int8
+                                        else [slots, 1, 3])
+    for step, (a, b) in enumerate(zip(got, want)):
+        for f in HEADS:
+            assert torch.equal(a[f], b[f]), (step, f)
+        for i, (x, y) in enumerate(zip(a["state"], b["state"])):
+            assert torch.equal(x, y), (step, i)
+    assert graphed.replays == 4 and eager.replays == 0
+
+
 @pytest.mark.cuda
 def test_graphed_engine_admitting_rows_alone_matches_full_batch_admissions():
     """A 16-slot graphed engine whose admissions encode only the rows they
@@ -831,49 +909,38 @@ def test_graphed_engine_admitting_rows_alone_matches_full_batch_admissions():
     _require_card()
     from gridmm_tpu_torch.config import tiny_config
     from gridmm_tpu_torch.models.navigator import init_navigator
-    from gridmm_tpu_torch.serve.engine import NavServingEngine
+    from gridmm_tpu_torch.serve.engine import NavServingEngine, serving_cfg
+    from gridmm_tpu_torch.train.step import nav_device_step
 
     cfg, slots = tiny_config(), 16
     model = init_navigator(cfg.model, seed=2, device="cuda")
     texts, rows = _tiny_engine_inputs(cfg, n_req=slots + 4, seed=3)
-    t = cfg.shapes.max_txt_len
-
-    def drive(eng):
-        lang, seen = eng._lang_fn, []
-        eng._lang_fn = lambda i, m: seen.append(tuple(i.shape)) or lang(i, m)
-        for r, (ids, mask) in enumerate(texts):
-            eng.submit(r, ids, mask)
-        outs, done, admitted = [], {r: 0 for r in range(len(texts))}, []
-        for finish in ([], [0], [1, 2, 3], []):
-            for r in finish:
-                eng.finish(r)
-            admitted.append(len(eng.admit()))
-            active = eng.active()
-            out = eng.step({s: rows[r][done[r]] for r, s in active.items()})
-            outs.append({f: getattr(out, f).cpu() for f in
-                         ("fused_logits", "global_logits", "local_logits",
-                          "grid_logits")})
-            for r in active:
-                done[r] += 1
-        assert admitted == [slots, 1, 3, 0]
-        return outs, seen
 
     rows_alone = NavServingEngine.create(model, cfg, slots)
-    every_row = NavServingEngine.create(model, cfg, slots)
-    every_row._encode_admitted_only = False
-    got, seen = drive(rows_alone)
-    want, seen_all = drive(every_row)
-    assert seen == [(slots, t), (1, t), (3, t)]
-    assert seen_all == [(slots, t)] * 3
-    _assert_outs_close(got, want)
+    # the same model behind the plain constructor: an engine without a
+    # model encodes all B rows
+    scfg, served = rows_alone.cfg, rows_alone.model
+    assert scfg == serving_cfg(cfg)
+    every_row = NavServingEngine(
+        scfg, slots, lang_fn=lambda i, m: served(
+            "language", {"txt_ids": i, "txt_mask": m}),
+        step_fn=lambda txt, mask, carry, x: nav_device_step(
+            served, scfg, txt, mask, carry, x))
+    got, seen = _drive_admissions(rows_alone, texts, rows, slots)
+    want, seen_all = _drive_admissions(every_row, texts, rows, slots)
+    assert seen == [slots, 1, 3]
+    assert seen_all == [slots] * 3
+    _assert_outs_close([{f: o[f] for f in HEADS} for o in got],
+                       [{f: o[f] for f in HEADS} for o in want])
 
 
 @pytest.mark.cuda
-def test_graph_capture_failure_raises():
-    """A step that waits on the host cannot be captured: the engine raises
-    and does not run eager in its place; dropout on the card still draws
-    afterwards (a failed capture must not leave CUDA's default generator in
-    its capture state)."""
+@pytest.mark.parametrize("syncs", ["step", "admission"])
+def test_graph_capture_failure_raises(syncs):
+    """A step, or an admission's language forward, that waits on the host
+    cannot be captured: the engine raises and does not run eager in its
+    place; dropout on the card still draws afterwards (a failed capture
+    must not leave CUDA's default generator in its capture state)."""
     _require_card()
     from gridmm_tpu_torch.config import tiny_config
     from gridmm_tpu_torch.models.navigator import init_navigator
@@ -883,15 +950,20 @@ def test_graph_capture_failure_raises():
     cfg = tiny_config()
     model = init_navigator(cfg.model, seed=2, device="cuda")
 
-    def syncing_step(txt, mask, carry, x):
+    def step(txt, mask, carry, x):
         carry, out = nav_device_step(model, cfg, txt, mask, carry, x)
-        out.fused_logits.sum().item()   # a host wait inside the step
+        if syncs == "step":
+            out.fused_logits.sum().item()   # a host wait inside the step
         return carry, out
 
-    with pytest.raises(RuntimeError, match="capture"):
-        NavServingEngine(cfg, 2, lang_fn=lambda i, m: model(
-            "language", {"txt_ids": i, "txt_mask": m}),
-            step_fn=syncing_step, device="cuda")
+    def lang(ids, mask):
+        txt = model("language", {"txt_ids": ids, "txt_mask": mask})
+        if syncs == "admission":
+            txt.sum().item()   # a host wait inside the admission
+        return txt
+
+    with pytest.raises(RuntimeError, match=f"capture of the serving {syncs}"):
+        NavServingEngine(cfg, 2, lang_fn=lang, step_fn=step, device="cuda")
     kept = torch.nn.functional.dropout(torch.ones(1 << 16, device="cuda"),
                                        0.5, True)
     assert 0.45 < (kept > 0).float().mean().item() < 0.55

@@ -9,7 +9,8 @@ agree within 1e-5 absolute and relative, -inf positions exactly.
 An admission's language forward: a live f32 engine encodes only the rows it
 admits, an int8 engine and a bundle's engine all B rows; in every kind the
 admitted rows of the text buffer hold the bits of the B-row forward and the
-other rows stay as they were."""
+other rows stay as they were. `_admit_rows(n)`, which the card replays from
+CUDA graphs, runs eagerly here over the same static buffers."""
 
 import dataclasses
 import sys
@@ -26,6 +27,7 @@ from gridmm_tpu.serve.engine import NavServingEngine as JEngine  # noqa: E402
 from gridmm_tpu_torch.models.navigator import init_navigator  # noqa: E402
 from gridmm_tpu_torch.ops.cuda.grid_pool import GRID_POOL_FWD  # noqa: E402
 from gridmm_tpu_torch.serve.engine import NavServingEngine as TEngine  # noqa: E402
+from gridmm_tpu_torch.serve.engine import _carry_tensors  # noqa: E402
 from gridmm_tpu_torch.serve.engine import serving_cfg  # noqa: E402
 from gridmm_tpu_torch.utils import export as TX  # noqa: E402
 from torch_parity import (assert_close, jax_navigator, port_config,  # noqa: E402
@@ -99,7 +101,7 @@ SLOTS = 3
 ROUNDS = [([], [0]), ([], [1, 2]), ([0, 1, 2], [3, 4, 5]), ([3, 5], [6])]
 
 
-def _admission_engine(kind, tmp_path):
+def _admission_engine(kind, tmp_path, batch=SLOTS):
     """A tiny `create` engine (f32 or int8) or a `from_bundle` engine on the
     weights of a seed."""
     tcfg = port_config(JC.tiny_config())
@@ -108,7 +110,7 @@ def _admission_engine(kind, tmp_path):
             tcfg.model, int8_matmuls=True))
     model = init_navigator(tcfg.model, seed=4, device="cpu")
     if kind != "bundle":
-        return TEngine.create(model, tcfg, SLOTS, device="cpu")
+        return TEngine.create(model, tcfg, batch, device="cpu")
     TX.save_serving_bundle(
         TX.export_navigator_serving(model, tcfg, model.state_dict(),
                                     batch=SLOTS, device="cpu"),
@@ -158,3 +160,110 @@ def test_admission_encodes_the_admitted_rows_where_rows_are_independent(
     rows = ([len(new) for _, new in ROUNDS] if encodes_admitted_only
             else [SLOTS] * len(ROUNDS))
     assert seen == [(k, t) for k in rows]
+
+
+ROWS_B = 5   # slots of the engines that run `_admit_rows` directly
+
+
+def _state(eng):
+    return (eng._txt_buf, eng._mask_buf, *_carry_tensors(eng._carry))
+
+
+def _scramble(eng, seed):
+    """Random contents in the text, mask and carry buffers, so that a write
+    or a zero-reset of a row shows."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.inference_mode():
+        for t in _state(eng):
+            if t.dtype == torch.bool:
+                t.copy_(torch.rand(t.shape, generator=g) < 0.5)
+            elif t.is_floating_point():
+                t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+            else:
+                t.copy_(torch.randint(1, 7, t.shape, generator=g))
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+@pytest.mark.parametrize("k", [1, 3, ROWS_B])
+def test_admit_rows_writes_the_admitted_slots_alone(kind, k, tmp_path):
+    """`_admit_rows(n)` over the admission's buffers, filled as `admit`
+    fills them for k admitted slots (out of order, among slots that hold
+    other requests' rows): the admitted slots' text and mask rows equal a
+    direct language forward, their carry rows are zero, and every other
+    slot's rows keep their bits."""
+    eng = _admission_engine(kind, tmp_path, batch=ROWS_B)
+    assert eng._encode_admitted_only == (kind == "f32")
+    _scramble(eng, seed=k)
+    before = [t.clone() for t in _state(eng)]
+    rng = np.random.default_rng(10 + k)
+    t = eng.cfg.shapes.max_txt_len
+    slots = [int(s) for s in rng.permutation(ROWS_B)[:k]]
+    texts = [(rng.integers(1, 1000, size=t).astype(np.int32),
+              np.arange(t) < rng.integers(3, t + 1)) for _ in slots]
+    ids, mask, rows = (a.numpy() for a in eng._admit_in)
+    if kind == "f32":
+        n = k
+        ids[:], mask[:] = 7, True   # stale rows past n are never read
+        at = range(k)
+    else:
+        n = ROWS_B
+        ids[:], mask[:], rows[:] = 0, False, slots[0]
+        at = slots
+    for i, (ti, mi) in zip(at, texts):
+        ids[i], mask[i] = ti, mi
+    rows[:k] = slots
+    with torch.inference_mode():
+        want = eng._lang_fn(torch.from_numpy(ids[:n].copy()),
+                            torch.from_numpy(mask[:n].copy()))
+        eng._admit_rows(n)
+    for i, slot in enumerate(slots):
+        src = i if kind == "f32" else slot
+        assert torch.equal(eng._txt_buf[slot], want[src]), slot
+        assert torch.equal(eng._mask_buf[slot],
+                           torch.from_numpy(texts[i][1])), slot
+        for buf in _carry_tensors(eng._carry):
+            assert not buf[slot].any(), slot
+    for slot in set(range(ROWS_B)) - set(slots):
+        for got, old in zip(_state(eng), before):
+            assert torch.equal(got[slot], old[slot]), slot
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_admissions_never_read_an_earlier_admissions_ids(kind, tmp_path):
+    """A reused engine admits 3 rows, then 1: the second forward sees that
+    one request's ids and mask alone (an int8 engine: in its slot, zeros in
+    every other row) and the slot's text row equals a direct forward of
+    them."""
+    eng = _admission_engine(kind, tmp_path, batch=ROWS_B)
+    lang, seen = eng._lang_fn, []
+
+    def spy(ids, mask):
+        seen.append((ids.clone(), mask.clone()))
+        return lang(ids, mask)
+
+    eng._lang_fn = spy
+    rng = np.random.default_rng(21)
+    t = eng.cfg.shapes.max_txt_len
+    texts = [(rng.integers(1, 1000, size=t).astype(np.int32),
+              np.arange(t) < rng.integers(3, t + 1)) for _ in range(4)]
+    for r in range(3):
+        eng.submit(r, *texts[r])
+    assert eng.admit() == {0: 0, 1: 1, 2: 2}
+    eng.finish(1)
+    eng.submit(3, *texts[3])
+    assert eng.admit() == {3: 1}
+    ids, mask = seen[-1]
+    if kind == "f32":
+        want_ids, want_mask = texts[3][0][None], texts[3][1][None]
+        src = 0
+    else:
+        want_ids = np.zeros((ROWS_B, t), np.int32)
+        want_mask = np.zeros((ROWS_B, t), bool)
+        want_ids[1], want_mask[1] = texts[3]
+        src = 1
+    assert np.array_equal(ids.numpy(), want_ids)
+    assert np.array_equal(mask.numpy(), want_mask)
+    with torch.inference_mode():
+        want = lang(torch.from_numpy(want_ids), torch.from_numpy(want_mask))
+    assert torch.equal(eng._txt_buf[1], want[src])
+    assert torch.equal(eng._mask_buf[1], torch.from_numpy(texts[3][1]))

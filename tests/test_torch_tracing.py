@@ -8,6 +8,7 @@ These tests import no JAX, so they also run on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_tracing.py -q
 """
 
+import importlib.util
 import sys
 import time
 from pathlib import Path
@@ -145,7 +146,8 @@ def test_serving_spans_counters_and_request_ids():
     assert [sp.attrs["ids"] for sp in admits] == [
         list(range(SLOTS)), list(range(SLOTS, SLOTS + MORE))]
     assert [sp.counters for sp in admits] == [
-        {"serve.admit.rows_admitted": n, "serve.admit.rows_encoded": n}
+        {"serve.admit.rows_admitted": n, "serve.admit.rows_encoded": n,
+         "serve.admit.calls": 1, "serve.admit.replays": 0}
         for n in (SLOTS, MORE)]
     steps = st.named("serve.step")
     assert len(steps) == 2
@@ -156,6 +158,7 @@ def test_serving_spans_counters_and_request_ids():
     assert all(sp.counters == {"serve.step.h2d_bytes": h2d} for sp in steps)
     assert st.counters == {"serve.admit.rows_admitted": SLOTS + MORE,
                            "serve.admit.rows_encoded": SLOTS + MORE,
+                           "serve.admit.calls": 2, "serve.admit.replays": 0,
                            "serve.step.h2d_bytes": 2 * h2d}
     for child in ("serve.step.assemble", "serve.step.replay"):
         assert [sp.parent for sp in st.named(child)] == steps
@@ -164,6 +167,56 @@ def test_serving_spans_counters_and_request_ids():
         assert sp.start <= sp.end and sp.device_ms() is None
         assert sp.parent is None or (sp.parent.start <= sp.start
                                      and sp.end <= sp.parent.end)
+
+
+def _reader(name):
+    spec = importlib.util.spec_from_file_location(
+        f"reader_{name.replace('.', '_')}",
+        Path(__file__).resolve().parents[1] / "benchmark" / "metrics"
+        / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def test_admission_counts_its_calls_and_replays_on_the_cpu():
+    """Each admission that admits a row counts one call; on the CPU none
+    replays a graph, and an admission with nothing to admit counts
+    nothing."""
+    eng, batch = _engine()
+    _off_span()
+
+    def serve():
+        admitted, _ = _serve(eng, batch)
+        assert eng.admit() == {}   # the queue is empty
+        return admitted
+
+    admitted, _ = _profiled(serve)
+    c = L.profiled_stretch().counters
+    assert len(admitted) == 2
+    assert c["serve.admit.calls"] == 2
+    assert c["serve.admit.replays"] == 0
+    assert not eng._admit_graphs
+
+
+def test_admit_graphed_pct_reader():
+    """`admit_graphed_pct.serve` is 100 x replays / calls over the
+    profiled stretch, and nothing without a trace or an admission."""
+    read = _reader("admit_graphed_pct.serve")
+    assert read({}) is None
+    traced = {"trace": {"busy_s": 0.0}}
+    _off_span()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with L.span("serve.admit") as sp:
+            sp.count("serve.admit.calls", 4)
+            sp.count("serve.admit.replays", 3)
+    assert read(traced) == pytest.approx(75.0)
+    assert read({"trace": None}) is None
+    _off_span()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with L.span("serve.step"):
+            pass
+    assert read(traced) is None
 
 
 def test_train_step_spans_and_section_timer_spans():
