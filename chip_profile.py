@@ -7,8 +7,6 @@ pretraining update's time goes on the card (gridmm_tpu_torch).
                                              pool_bwd]
     python3 chip_profile.py --changing-ops
     python3 chip_profile.py --k1-shapes
-    python3 chip_profile.py --k2-builds
-    python3 chip_profile.py --k4-builds
 
 Builds the full-width R2R navigator (seeded random weights) and, for an
 eager 4-slot serving engine and then one whose step is a CUDA graph, fills
@@ -47,7 +45,12 @@ passes (K5a, K5b) as built from this tree's csrc/ and from OTHER_TREE's (a
 checkout of another commit, for example the parent unpacked with `git
 archive`) in one process, on the same inputs, in turns (other, this, this,
 other), at the main paths' shapes, reading from device memory; a shape a
-tree's kernel refuses is timed for the other tree only. `--only` names the
+tree's kernel refuses is timed for the other tree only. Beside each case
+it prints the kernel's bound (bytes over 3.35 TB/s or operations over the
+type's peak, the larger: benchmark/peaks.json, and benchmark/costs for
+K1's and K5a's bytes), the plain version's time and a library call's
+(index_add_, F.layer_norm, SDPA's fastest backend, autograd of the plain
+pool): the Bound, Plain and Library columns of PERF.md's kernel table. `--only` names the
 kernels to time (pool: K1; layernorm: K3; attention: K2 and K4; pool_bwd:
 K5a and K5b); without it, all. K1 runs on each main path's own
 inputs (every K1 launch of one run of the path, recorded: serving,
@@ -59,20 +62,9 @@ chunk, K5a its scratch and tile count); each tree is called with its own.
 
 With --k1-shapes, it only times the pool forward over its launch shapes
 (blocks a row is dealt to x cells a block) on each main path's own inputs
-and on an even and a skewed buffer at the serving shape, and then builds
-of K1 that differ in one place each (K1_VARIANTS: the register caps, a
-cluster of one block for unsplit rows) on the paths' inputs: the tables
-the wrapper's choice (`fwd_launch_shape`) and the caps were made from.
---k1-shapes and --ab may be given together; the paths then run once.
-
-With --k2-builds, it only times builds of the packed-qkv attention (K2)
-that differ in one place each (ATTENTION_BUILDS["k2"]: a third slot in
-the ring, four-warp blocks, no register cap) at its main paths' shapes
-and at L = 1025 and 2048, bf16, in turns: the table its ring and block
-were chosen from. With --k4-builds, the same for the per-head attention
-(K4; ATTENTION_BUILDS["k4"]: the bf16 body streaming every slice's tiles)
-at its main paths' shapes and a few others: the table its bodies were
-chosen from.
+and on an even and a skewed buffer at the serving shape: the table the
+wrapper's choice (`fwd_launch_shape`) was made from. --k1-shapes and --ab
+may be given together; the paths then run once.
 
 With --changing-ops, it only runs one train loss and its backward three
 times on the same inputs and names the operators whose outputs change from
@@ -80,15 +72,16 @@ run to run on the same inputs (`changing_ops`).
 
 Needs one NVIDIA card; writes the tables to chiprun_out/chip_profile.txt
 (chip_profile_ab.json with --ab, chip_profile_changing_ops.json with
---changing-ops, chip_profile_k1_shapes.json with --k1-shapes,
-chip_profile_k2_builds.json and chip_profile_k4_builds.json with
---k2-builds and --k4-builds).
+--changing-ops, chip_profile_k1_shapes.json with --k1-shapes). The
+integration checks on the card are chip_smoke.py's, the kernels' checks
+tests/test_torch_cuda.py's, and the speed of the cells benchmark/run.py's.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import sys
 import time
@@ -96,15 +89,15 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from benchmark.costs.grid_pool import CELL_PAD, bwd1_bytes, fwd_bytes
 from chip_smoke import (CE_ENVS, CE_N, CE_SEED, CE_STEPS, CLIP_BATCH,
                         FIRST_STEPS, LATER_STEPS, PIPE_PANOS, PRETRAIN_B,
                         PRETRAIN_N, PRETRAIN_S, SERVE_SLOTS, TRAIN_STEPS,
-                        VIEWS, ce_env, run_engine,
-                        attn_atol, bwd_inputs, card, copies_for, cuda_ms,
-                        pipeline_inputs, pool_case, request_text, require,
-                        rotating_ms, step_row)
+                        VIEWS, card, ce_env, pipeline_inputs, request_text,
+                        require, run_engine, step_row)
 from gridmm_tpu_torch.ce.factory import build_ce_agent
 from gridmm_tpu_torch.ce.trainer import CETrainer
 from gridmm_tpu_torch.config import r2r_config
@@ -115,6 +108,7 @@ from gridmm_tpu_torch.models.navigator import init_navigator
 from gridmm_tpu_torch.ops import geometry as G
 from gridmm_tpu_torch.ops import grid_pool as GP
 from gridmm_tpu_torch.ops import attention as ATT
+from gridmm_tpu_torch.ops import layernorm as LN
 from gridmm_tpu_torch.ops.cuda import build
 from gridmm_tpu_torch.ops.cuda.attention import (ATTENTION_FWD,
                                                  ATTENTION_QKV_FWD)
@@ -137,6 +131,145 @@ from gridmm_tpu_torch.train.synthetic import (synthetic_pretrain_batch,
                                               synthetic_trajectory_batch)
 
 ROOT = Path(__file__).resolve().parent
+
+
+# ------------------------------------------------------------------ timing
+def cuda_ms(fn, iters=25, warmup=5) -> float:
+    """Mean device ms per call over `iters` calls, CUDA events, after
+    warm-up. The stream is held by a spin kernel while the host enqueues the
+    calls, so the events time them back to back on the device and a call
+    shorter than its Python wrapper is not timed at the host's pace."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # twice the measured enqueue time at <= 2 GHz, plus 2 ms
+    torch.cuda._sleep(int((2.0 * enqueue_s + 2e-3) * 2e9))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rotating_ms(fn, arg_sets, iters=30):
+    """cuda_ms over calls that cycle through `arg_sets`, so that a kernel
+    whose inputs fit in the 50 MB L2 still reads them from device memory."""
+    i = [0]
+
+    def call():
+        fn(*arg_sets[i[0] % len(arg_sets)])
+        i[0] += 1
+    return cuda_ms(call, iters=iters)
+
+
+def copies_for(nbytes):
+    """Input sets needed to spread the reads over more than twice the L2."""
+    return max(1, math.ceil(100e6 / nbytes))
+
+
+def attn_atol(dtype, v):
+    """f32: 2e-5 (summation order, online softmax); bf16: the plain version
+    rounds the probabilities to bf16 before PV and both round the output,
+    each within 2^-8 relative, so 2^-6 x max|v| bounds the difference."""
+    if dtype == torch.float32:
+        return 2e-5
+    return 2.0 ** -6 * v.float().abs().max().item()
+
+
+def pool_case(kind, b, dtype, seed=0, n=8832):
+    """(b, n, 768) pool inputs on the card: random cells with ~5% invalid;
+    "skew" adds a row where cell 17 holds 90% of the points and an
+    all-invalid row."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((b, n, 768)).astype(np.float32)
+    cells = rng.integers(0, 196, size=(b, n)).astype(np.int32)
+    cells[rng.random((b, n)) < 0.05] = -1
+    w = (rng.standard_normal((b, n)) * 3.0).astype(np.float32)
+    if kind == "skew":
+        cells[0][rng.random(n) < 0.9] = 17
+        cells[1] = -1
+    return (torch.from_numpy(g).to("cuda", dtype),
+            torch.from_numpy(cells).cuda(), torch.from_numpy(w).cuda())
+
+
+def bwd_inputs(g, cells, w, seed):
+    """The forward's residuals (kernel) and a random cotangent for (g, cells,
+    w) on the card."""
+    b, _, d = g.shape
+    _, _, denom, cmax = GRID_POOL_FWD(g, cells, w)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cot = torch.randn((b, 196, d), generator=gen, device="cuda")
+    return cmax, denom, cot
+
+
+def bound(nbytes, ops, dtype):
+    """The larger of `nbytes` over the card's memory bandwidth and `ops`
+    over its peak rate in `dtype` (benchmark/peaks.json, the H100 SXM data
+    sheet): (ms, "bytes" or "operations")."""
+    peaks = json.loads((ROOT / "benchmark" / "peaks.json").read_text())
+    byte_ms = nbytes / peaks["hbm_bytes_per_s"] * 1e3
+    op_ms = ops / peaks["flops_per_s"][str(dtype)[6:]] * 1e3
+    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
+
+
+def pool_yardsticks(caps):
+    """K1's plain version and library yardstick over the launches `caps`,
+    as calls of no argument: grid_scatter_pool_raw, and index_add_ of the
+    pre-weighted features into (B*256, D) rows (invalid points go to each
+    row's unused cell 255), its inputs made outside the call."""
+    adds = []
+    for g, cells, w, nc in caps:
+        b, _, d = g.shape
+        valid = (cells >= 0) & (cells < nc)
+        cidx = torch.where(valid, cells, torch.zeros_like(cells)).long()
+        e = torch.exp(w - GP.cell_max(cells, w, nc).gather(1, cidx))
+        src = (e.masked_fill(~valid, 0.0)[..., None] * g.float()).reshape(
+            -1, d)
+        rows = (torch.arange(b, device="cuda")[:, None] * CELL_PAD
+                + torch.where(valid, cidx, torch.full_like(cidx, CELL_PAD - 1))
+                ).reshape(-1)
+        adds.append((torch.zeros((b * CELL_PAD, d), device="cuda"), rows,
+                     src))
+
+    def plain():
+        for g, cells, w, nc in caps:
+            GP.grid_scatter_pool_raw(g, cells, w, nc)
+
+    def library():
+        for flat, rows, src in adds:
+            flat.index_add_(0, rows, src)
+    return plain, library
+
+
+def fastest_sdpa(views, sets):
+    """F.scaled_dot_product_attention on the (q, k, v) that `views` makes of
+    each input set, timed over `sets` under each backend that takes them
+    (flash, memory-efficient, cuDNN, math): (ms, backend) of the fastest."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    taken = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(*a, backend=backend):
+            with sdpa_kernel(backend):
+                F.scaled_dot_product_attention(*views(*a))
+        try:
+            call(*sets[0])
+        except RuntimeError:
+            continue
+        taken[backend.name] = rotating_ms(call, sets)
+    require(taken, "no SDPA backend takes these inputs")
+    name = min(taken, key=taken.get)
+    return taken[name], name
 
 
 def device_us(evt) -> float:
@@ -403,9 +536,11 @@ def ab_kernels(other_root: Path, dev_name: str, paths: dict,
                only=AB_KERNELS) -> dict:
     """K1, K3, K2 and K4, K5a and K5b (those `only` names) from this tree's
     csrc/ and from `other_root`'s, on the same inputs, timed in turns
-    (other, this, this, other). Both trees must export the same C entry
-    points (the pool kernels' of either generation). Returns {case: {tree:
-    [ms, ms]}}."""
+    (other, this, this, other), each beside its bound and, where there is
+    one, the plain version's and a library call's time. Both trees must
+    export the same C entry points (the pool kernels' of either
+    generation). Returns {case: {tree: [ms, ms], "bound_ms", "bound_by",
+    "plain_ms", "library_ms", "library"}}."""
     trees = {"other": other_root / "gridmm_tpu_torch" / "csrc",
              "this": build.SRC_DIR}
     # a tree whose K1 splits rows: K1 takes (group, row_split, chunk), K5a its
@@ -454,14 +589,26 @@ def ab_kernels(other_root: Path, dev_name: str, paths: dict,
               f"{got['other'][1]:.5f} ms, this {got['this'][0]:.5f} / "
               f"{got['this'][1]:.5f} ms [{dev_name}]")
 
+    def beside(case, nbytes, ops, dtype, plain=None, library=None):
+        """Adds to `case` its bound and the times of the plain version and
+        of a library call (`plain`: a timer; `library`: (ms, name))."""
+        row = result[case]
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, dtype)
+        row["plain_ms"] = plain() if plain is not None else None
+        row["library_ms"], row["library"] = library or (None, None)
+        print(f"    bound {row['bound_ms']:.5f} ms ({row['bound_by']})"
+              + (f", plain {row['plain_ms']:.5f} ms" if plain else "")
+              + (f", {row['library']} {row['library_ms']:.5f} ms"
+                 if library else ""))
+
     if "pool" in only:
-        pool_forward_ab(paths, split_rows, fns, turns)
+        pool_forward_ab(paths, split_rows, fns, turns, beside)
     if "layernorm" in only:
-        layernorm_ab(fns, turns, run, result)
+        layernorm_ab(fns, turns, beside, run, result)
     if "attention" in only:
-        attention_ab(fns, turns, run, result, stream, dev_name)
+        attention_ab(fns, turns, beside, run, result, stream, dev_name)
     if "pool_bwd" in only:
-        pool_backward_ab(trees, split_rows, fns, turns, run)
+        pool_backward_ab(trees, split_rows, fns, turns, beside, run)
     one = torch.ones(1, device="cuda")
     result["launch floor (a one-element torch.add)"] = cuda_ms(
         lambda: torch.add(one, one, out=one), iters=30)
@@ -471,11 +618,13 @@ def ab_kernels(other_root: Path, dev_name: str, paths: dict,
     return result
 
 
-def pool_forward_ab(paths, split_rows, fns, turns):
+def pool_forward_ab(paths, split_rows, fns, turns, beside):
     """K1 of both trees on the main paths' own inputs (a run of each path:
     every launch in turn), on the last serving step's buffer, and on
     synthetic buffers at the main paths' shapes, each tree with its own
-    launch shape (the parent's: `group` cells a block, a block a row)."""
+    launch shape (the parent's: `group` cells a block, a block a row);
+    beside them the bytes the launches must move (benchmark/costs), the
+    plain pool and index_add_ (`pool_yardsticks`)."""
     trees = ("other", "this")
     cases = {f"{label} path, its {len(caps)} launches": caps
              for label, caps in paths.items()}
@@ -514,16 +663,23 @@ def pool_forward_ab(paths, split_rows, fns, turns):
                                    rtol=1e-5, atol=1e-5 * pooled[
                                        "other"].abs().max().item())
         g = caps[0][0]
-        turns(f"grid_pool_fwd {label} {tuple(g.shape)} {str(g.dtype)[6:]}",
-              lambda tree: cuda_ms(lambda: fwd(tree),
-                                   iters=max(3, 25 // len(caps)),
-                                   warmup=1))
-        del outs, pooled
+        case = f"grid_pool_fwd {label} {tuple(g.shape)} {str(g.dtype)[6:]}"
+        iters = max(3, 25 // len(caps))
+        turns(case, lambda tree: cuda_ms(lambda: fwd(tree), iters=iters,
+                                         warmup=1))
+        nbytes = sum(fwd_bytes(*g.shape, int(((c >= 0) & (c < nc)).sum()),
+                               g.element_size()) for g, c, _, nc in caps)
+        plain, library = pool_yardsticks(caps)
+        beside(case, nbytes, 0, torch.float32,
+               lambda: cuda_ms(plain, iters=iters, warmup=1),
+               (cuda_ms(library, iters=iters, warmup=1), "index_add_"))
+        del outs, pooled, plain, library
 
 
-def layernorm_ab(fns, turns, run, result):
-    """K3 of both trees at the towers' shapes, beside a copy_ of the same
-    bytes."""
+def layernorm_ab(fns, turns, beside, run, result):
+    """K3 of both trees at the towers' shapes, beside the plain version,
+    F.layer_norm (scale and bias cast to x's type outside the call) and a
+    copy_ of the same bytes."""
     trees = ("other", "this")
     rng = np.random.default_rng(5)
     for rows, c, dtype in ((9600, 768, torch.bfloat16),
@@ -536,10 +692,12 @@ def layernorm_ab(fns, turns, run, result):
         for _ in range(copies_for(2 * rows * c * size)):
             x = torch.from_numpy(rng.standard_normal((rows, c)).astype(
                 np.float32)).to("cuda", dtype)
-            sets.append((x, torch.rand(c, device="cuda") + 0.5,
-                         torch.randn(c, device="cuda"), torch.empty_like(x)))
+            w, b = torch.rand(c, device="cuda") + 0.5, torch.randn(
+                c, device="cuda")
+            sets.append((x, w, b, torch.empty_like(x), w.to(dtype),
+                         b.to(dtype)))
 
-        def ln(tree, x, w, b, y):
+        def ln(tree, x, w, b, y, *_):
             run(fns[tree]["ln"], x.data_ptr(), code, w.data_ptr(),
                 b.data_ptr(), y.data_ptr(), rows, c, 1e-5)
 
@@ -551,9 +709,15 @@ def layernorm_ab(fns, turns, run, result):
                                    atol=1e-5)
         case = f"layernorm_fwd ({rows}, {c}) {str(dtype)[6:]}"
         turns(case, lambda tree: rotating_ms(lambda *a: ln(tree, *a), sets))
+        beside(case, 2 * rows * c * size + 2 * c * 4, 8 * rows * c,
+               torch.float32,
+               lambda: rotating_ms(lambda x, w, b, *_: LN.layernorm_plain(
+                   x, w, b), sets),
+               (rotating_ms(lambda x, w, b, y, wc, bc: F.layer_norm(
+                   x, (c,), wc, bc, 1e-5), sets), "F.layer_norm"))
         # a practical ceiling: PyTorch's copy of the same bytes
         result[case]["copy_ms"] = rotating_ms(
-            lambda x, w, b, y: y.copy_(x), sets)
+            lambda x, w, b, y, *_: y.copy_(x), sets)
         print(f"    copy_ of the same bytes: {result[case]['copy_ms']:.5f} ms")
         del sets, ys
 
@@ -571,11 +735,12 @@ def timed_where_taken(case, takes, timer, turns, result, dev_name):
           f"{result[case][tree][1]:.5f} ms [{dev_name}]")
 
 
-def attention_ab(fns, turns, run, result, stream, dev_name):
+def attention_ab(fns, turns, beside, run, result, stream, dev_name):
     """K2 at its main paths' shapes (clip_b32's (192, 50), the CE view
     tower's (48, 197), B/16's (192, 197)) and at L = 1025, bf16; K4 at the
     tiny tower's, B/16's and ViT-H/14's shapes and at long L and hd 320.
-    Each call on its own input and output."""
+    Each call on its own input and output; beside them the plain version
+    and SDPA's fastest backend on 4-D views of the same q, k and v."""
     trees = ("other", "this")
     gen = torch.Generator(device="cuda").manual_seed(6)
     for b, length in ((CLIP_BATCH * VIEWS, 50), (48, 197),
@@ -600,11 +765,17 @@ def attention_ab(fns, turns, run, result, stream, dev_name):
                                            atol=attn_atol(x.dtype,
                                                           x[..., 1536:]))
         require(takes["this"], f"attention_qkv_fwd refused L = {length}")
+        case = f"attention_qkv_fwd ({b}, {length}, 2304) bfloat16"
         timed_where_taken(
-            f"attention_qkv_fwd ({b}, {length}, 2304) bfloat16", takes,
-            lambda tree: rotating_ms(
+            case, takes, lambda tree: rotating_ms(
                 lambda *a: run(fns[tree]["qkv"], *qkv_args(*a)), sets),
             turns, result, dev_name)
+        beside(case, b * length * 3072 * 2, 4 * b * 12 * length * length * 64,
+               torch.bfloat16,
+               lambda: rotating_ms(
+                   lambda x, o: ATT.attention_qkv_plain(x, 12), sets),
+               fastest_sdpa(lambda x, o, b=b, length=length: x.view(
+                   b, length, 3, 12, 64).permute(2, 0, 3, 1, 4), sets))
         del sets, x, o, want
 
     # K4, each call on its own q, k, v and o
@@ -635,15 +806,25 @@ def attention_ab(fns, turns, run, result, stream, dev_name):
                 torch.testing.assert_close(o.float(), want, rtol=0.0,
                                            atol=attn_atol(dtype, v))
         require(takes["this"], f"attention_fwd refused hd {hd}")
+        case = f"attention_fwd ({bh}, {length}, {hd}) {str(dtype)[6:]}"
         timed_where_taken(
-            f"attention_fwd ({bh}, {length}, {hd}) {str(dtype)[6:]}", takes,
+            case, takes,
             lambda tree: rotating_ms(lambda *a: attn(tree, *a), sets),
             turns, result, dev_name)
+        beside(case, 4 * bh * length * hd * size,
+               4 * bh * length * length * hd, dtype,
+               lambda: rotating_ms(
+                   lambda q, k, v, o: ATT.attention_plain(q, k, v), sets),
+               fastest_sdpa(lambda q, k, v, o: (q[None], k[None], v[None]),
+                            sets))
         del sets, q, k, v, o, want
 
 
-def pool_backward_ab(trees, split_rows, fns, turns, run):
-    """K5a and K5b of both trees at the train shape."""
+def pool_backward_ab(trees, split_rows, fns, turns, beside, run):
+    """K5a and K5b of both trees at the train shape, each beside its bound
+    (K5a's bytes from benchmark/costs); pass 2 beside its plain version;
+    both passes beside grid_pool_bwd_terms and autograd through the plain
+    pool's forward."""
     # the pool backward at the train shape: B=16, N=8820, D=768 f32
     g, cells, w = pool_case("random", 16, torch.float32, seed=6, n=8820)
     b, n, d = g.shape
@@ -668,15 +849,23 @@ def pool_backward_ab(trees, split_rows, fns, turns, run):
             big_s.zero_()
             run(fns[tree]["bwd1"], *head, b, n, d, 196, sms * 32)
 
-    def pass2(tree, cells, w, cmax, denom, big_s, s_pt, dw):
+    def pass2(tree, cells, w, cmax, denom, big_s, s_pt, dw, *_):
         run(fns[tree]["bwd2"], cells.data_ptr(), w.data_ptr(),
             cmax.data_ptr(), denom.data_ptr(), big_s.data_ptr(),
             s_pt.data_ptr(), dw.data_ptr(), b, n, 196)
 
+    def plain_pass2(cells, w, cmax, denom, big_s, s_pt, dw, valid, idx):
+        p = (torch.exp(w - cmax.gather(1, idx))
+             / denom[:, :196].gather(1, idx).clamp_min(1e-30))
+        return p.masked_fill(~valid, 0.0) * (s_pt - big_s.gather(1, idx))
+
     pass1("this")
+    valid = (cells >= 0) & (cells < 196)
+    idx = torch.where(valid, cells, torch.zeros_like(cells)).long()
+    bytes2 = b * n * 16 + b * (196 + 2 * CELL_PAD) * 4
     sets2 = [tuple(t.clone() for t in (cells, w, cmax, denom, big_s, s_pt))
-             + (torch.empty((b, n), device="cuda"),)
-             for _ in range(copies_for(b * n * 16))]
+             + (torch.empty((b, n), device="cuda"), valid, idx)
+             for _ in range(copies_for(bytes2))]
     dws = {}
     for tree in trees:
         pass2(tree, *sets2[0])
@@ -684,16 +873,30 @@ def pool_backward_ab(trees, split_rows, fns, turns, run):
     torch.testing.assert_close(dws["this"], dws["other"], rtol=0,
                                atol=1e-5 * dws["other"].abs().max().item())
     label = f"B={b} N={n} D={d} f32"
+    bytes1, ops1 = bwd1_bytes(b, n, d, int(valid.sum()), 4), 4 * int(
+        valid.sum()) * d
     turns(f"grid_pool_bwd1 {label}",
           lambda tree: cuda_ms(lambda: pass1(tree), iters=10, warmup=2))
+    beside(f"grid_pool_bwd1 {label}", bytes1, ops1, torch.float32)
     turns(f"grid_pool_bwd2 {label}",
           lambda tree: rotating_ms(lambda *a: pass2(tree, *a), sets2,
                                    iters=len(sets2)))
+    beside(f"grid_pool_bwd2 {label}", bytes2, 6 * b * n, torch.float32,
+           lambda: rotating_ms(plain_pass2, sets2, iters=len(sets2)))
     turns(f"grid_pool_bwd2 {label}, from L2",
           lambda tree: cuda_ms(lambda: pass2(tree, *sets2[0]), iters=30))
     turns(f"both passes {label}",
           lambda tree: cuda_ms(lambda: (pass1(tree), pass2(tree, *sets2[0])),
                                iters=10, warmup=2))
+    gg, ww = g.detach().requires_grad_(), w.detach().requires_grad_()
+    pooled = GP.grid_scatter_pool_raw(gg, cells, ww)[0]
+    beside(f"both passes {label}", bytes1 + bytes2, ops1 + 6 * b * n,
+           torch.float32,
+           lambda: cuda_ms(lambda: GP.grid_pool_bwd_terms(
+               g, cells, w, denom, cot), iters=5, warmup=1),
+           (cuda_ms(lambda: torch.autograd.grad(
+               pooled, (gg, ww), cot, retain_graph=True), iters=5, warmup=1),
+            "autograd of grid_scatter_pool_raw"))
 
 
 def checksums(tree):
@@ -798,219 +1001,6 @@ def k1_launch_shapes(dev_name: str, paths: dict) -> dict:
     return out
 
 
-# builds of K1 that differ from this tree's in one place each: the
-# register cap of a lone block (the blocks an SM must hold: 3 or 2 where
-# this tree takes 3 only where the shared memory lets an SM hold three) and
-# of a cluster's (2 where this tree takes 3), and the cluster path taking
-# unsplit rows too (a cluster of one block: one finishing path)
-_LONE_CAP = ("  if (kSmemPerSm / (fwd_smem<T, kVec>(d, group, chunk) + kStaticSmem "
-             "+\n                    kSmemPerBlock) >= 3) {")
-_SPLIT_ONLY = ("  if (rsplit > 1) {\n    return launch_kernel<T, kVec, true, "
-               "kClusterMinBlocks>(")
-K1_VARIANTS = {
-    "as built": (),
-    "lone block min blocks 3": ((_LONE_CAP, "  if (true) {"),),
-    "lone block min blocks 2": ((_LONE_CAP, "  if (false) {"),),
-    "cluster min blocks 2": ((
-        "constexpr int kClusterMinBlocks = 3;",
-        "constexpr int kClusterMinBlocks = 2;"),),
-    "cluster of 1 for unsplit rows": ((
-        _SPLIT_ONLY, _SPLIT_ONLY.replace("rsplit > 1", "rsplit >= 1")),),
-}
-
-
-def k1_variants(dev_name: str, paths: dict) -> dict:
-    """Each build of K1_VARIANTS (its source written under the git-ignored
-    build directory) on each main path's own inputs, at the wrapper's
-    launch shape and unsplit with 1, 2 and 4 cells a block, builds in
-    turns. Returns {case: {shape: {variant: ms}}}."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    text = (build.SRC_DIR / f"{SOURCE}.cu").read_text()
-    dirs = {}
-    for i, (name, edits) in enumerate(K1_VARIANTS.items()):
-        src = text
-        for old, new in edits:
-            require(old in src, f"variant {name}: {old!r} not in the source")
-            src = src.replace(old, new)
-        dirs[name] = build.BUILD_DIR / "variants" / f"v{i}"
-        dirs[name].mkdir(parents=True, exist_ok=True)
-        (dirs[name] / f"{SOURCE}.cu").write_text(src)
-    with ThreadPoolExecutor(len(dirs)) as pool:
-        list(pool.map(lambda d: build.build_all([SOURCE], d), dirs.values()))
-    fns = {name: build.function(SOURCE, GRID_POOL_FWD.symbol,
-                                GRID_POOL_FWD.argtypes, d)
-           for name, d in dirs.items()}
-    out = {}
-    for label, caps in paths.items():
-        outs = k1_outputs(caps)
-        g0, _, _, nc0 = caps[0]
-        b, n, _ = g0.shape
-        shapes = {"wrapper's": fwd_launch_shape(b, n, nc0)}
-        for group in (1, 2, 4):
-            shapes[f"1/{group}"] = (group, 1, min(MAX_CHUNK, n))
-        out[label] = {}
-        for sname, shape in shapes.items():
-            def run(fn, shape=shape):
-                for g, cells, w, nc in caps:
-                    k1_launch(fn, g, cells, w, nc, outs, shape)
-
-            got = {}
-            for name, fn in fns.items():
-                run(fn)
-                got[name] = next(iter(outs.values()))[0].clone()
-            for name in fns:
-                torch.testing.assert_close(got[name], got["as built"],
-                                           rtol=1e-5, atol=1e-6)
-            ms = {name: [] for name in fns}
-            for order in (list(fns), list(fns)[::-1]):
-                for name in order:
-                    ms[name].append(cuda_ms(lambda: run(fns[name]),
-                                            iters=max(3, 25 // len(caps)),
-                                            warmup=1))
-            out[label][f"{sname} {shape}"] = ms
-            print(f"  K1 {label}, {len(caps)} launches, shape {sname} "
-                  f"{shape}, ms by build (two turns): "
-                  + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}"
-                              for k, v in ms.items()) + f" [{dev_name}]")
-    return out
-
-
-# Builds of K2 and K4 that differ in one place each: {kernel: (source,
-# {variant: ((file, old text, new text), ...)})}. The tables the rings,
-# blocks and bodies were chosen from.
-ATTENTION_BUILDS = {
-    "k2": ("attention_qkv_fwd", {
-        "as built": (),
-        "three slots": (("attention_qkv_mma.cuh",
-                         "constexpr int kStages = 2;",
-                         "constexpr int kStages = 3;"),),
-        "four-warp blocks": (("attention_qkv_mma.cuh",
-                              "constexpr int kMaxWarps = 8;",
-                              "constexpr int kMaxWarps = 4;"),),
-        "no register cap": (("attention_qkv_mma.cuh",
-                             "__launch_bounds__(kMaxThreads, 2)",
-                             "__launch_bounds__(kMaxThreads)"),),
-    }),
-    "k4": ("attention_fwd", {
-        "as built": (),
-        # bf16: every item's tiles stream, as those of a slice that
-        # outgrows the ring do
-        "streamed only": (
-            ("attention_head_mma.cuh", "const bool resident = tiles <= slots;",
-             "const bool resident = false;"),
-            ("attention_fwd.cu",
-             "const long long units = tiles <= hm::ring_slots(kHdP)",
-             "const long long units = false")),
-    }),
-}
-
-
-def build_variants(kernel: str) -> dict:
-    """Each build of ATTENTION_BUILDS[kernel] (the sources written under the
-    git-ignored build directory, all compiled at once): {variant: its C
-    function}."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    source, variants = ATTENTION_BUILDS[kernel]
-    dirs = {}
-    for i, (name, edits) in enumerate(variants.items()):
-        d = build.BUILD_DIR / "variants" / f"{kernel}_v{i}"
-        d.mkdir(parents=True, exist_ok=True)
-        texts = {src.name: src.read_text()
-                 for src in [build.SRC_DIR / f"{source}.cu",
-                             *build.SRC_DIR.glob("*.cuh")]}
-        for file, old, new in edits:
-            require(old in texts[file],
-                    f"variant {name}: {old!r} not in {file}")
-            texts[file] = texts[file].replace(old, new)
-        for file, text in texts.items():
-            (d / file).write_text(text)
-        dirs[name] = d
-    with ThreadPoolExecutor(len(dirs)) as pool:
-        logs = dict(zip(dirs, pool.map(
-            lambda d: build.build_all([source], d), dirs.values())))
-    for name, log in logs.items():
-        print(f"  {name}: {ptxas_summary(log.get(source, ''))}")
-    launcher = ATTENTION_QKV_FWD if kernel == "k2" else ATTENTION_FWD
-    return {name: build.function(source, launcher.symbol, launcher.argtypes,
-                                 d)
-            for name, d in dirs.items()}
-
-
-def attention_variants(kernel: str, dev_name: str) -> dict:
-    """Each build of ATTENTION_BUILDS[kernel], each build's output held to
-    the plain version once, builds timed in turns (forward, then backward).
-    K2 at its main paths' shapes ((192, 50), (48, 197), (192, 197)) and at
-    L = 1025 and 2048, bf16; K4 at its main paths' (the tiny tower's (192,
-    50, 16) f32 and the tiny CE agent's (96, 50, 16) f32, ViT-H/14's (3072,
-    257, 80) bf16), at (2304, 197, 64) bf16, at the tiny tower's shape in
-    bf16 and at (64, 1025, 80) bf16. Returns {shape: {variant: [ms, ms]}}."""
-    fns = build_variants(kernel)
-    stream = torch.cuda.current_stream().cuda_stream
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    cases = []
-    if kernel == "k2":
-        for b, length in ((CLIP_BATCH * VIEWS, 50), (48, 197),
-                          (CLIP_BATCH * VIEWS, 197), (4, 1025), (2, 2048)):
-            sets = [(torch.randn((b, length, 2304), generator=gen,
-                                 device="cuda").to(torch.bfloat16),
-                     torch.empty((b, length, 768), device="cuda",
-                                 dtype=torch.bfloat16))
-                    for _ in range(copies_for(b * length * 3072 * 2))]
-
-            def args(x, o, b=b, length=length):
-                return (x.data_ptr(), 1, o.data_ptr(), b, length, 12, 0.125)
-
-            x, o = sets[0]
-            cases.append((f"attention_qkv_fwd ({b}, {length}, 2304) bf16",
-                          sets, args, o, ATT.attention_qkv_plain(x, 12),
-                          attn_atol(x.dtype, x[..., 1536:])))
-    else:
-        for bh, length, hd, dtype in (
-                (4 * VIEWS * 4, 50, 16, torch.float32),
-                (2 * VIEWS * 4, 50, 16, torch.float32),
-                (CLIP_BATCH * VIEWS * 16, 257, 80, torch.bfloat16),
-                (CLIP_BATCH * VIEWS * 12, 197, 64, torch.bfloat16),
-                (4 * VIEWS * 4, 50, 16, torch.bfloat16),
-                (64, 1025, 80, torch.bfloat16)):
-            code = 0 if dtype == torch.float32 else 1
-            size = 2 if dtype == torch.bfloat16 else 4
-            sets = [tuple(torch.randn((bh, length, hd), generator=gen,
-                                      device="cuda").to(dtype)
-                          for _ in range(4))
-                    for _ in range(copies_for(4 * bh * length * hd * size))]
-
-            def args(*t, code=code, bh=bh, length=length, hd=hd):
-                return attn_args(t, code, bh, length, hd)
-
-            q, k, v, o = sets[0]
-            cases.append((f"attention_fwd ({bh}, {length}, {hd}) "
-                          f"{str(dtype)[6:]}", sets, args, o,
-                          ATT.attention_plain(q, k, v), attn_atol(dtype, v)))
-    out = {}
-    for case, sets, args, o, want, atol in cases:
-        def call(fn, *a, args=args):
-            err = fn(*args(*a), stream)
-            require(err == 0, f"{case}: launch failed: cudaError {err}")
-
-        for name, fn in fns.items():
-            o.zero_()
-            call(fn, *sets[0])
-            torch.testing.assert_close(o.float(), want.float(), rtol=0.0,
-                                       atol=atol)
-        got = {name: [] for name in fns}
-        for order in (list(fns), list(fns)[::-1]):
-            for name in order:
-                got[name].append(rotating_ms(
-                    lambda *a, fn=fns[name]: call(fn, *a), sets))
-        out[case] = got
-        print(f"  {case}: " + ", ".join(f"{n} {v[0]:.5f} / {v[1]:.5f}"
-                                        for n, v in got.items())
-              + f" ms [{dev_name}]")
-    return out
-
-
 def ce_profile(out):
     """One fused CE step (4 envs, full width, view tower) and one CE update
     (4 envs x 20 steps, dropout off), each traced after a warm-up."""
@@ -1080,12 +1070,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--k1-shapes", action="store_true",
-                    help="only time K1 over its launch shapes and builds "
-                         "on the main paths' inputs")
-    ap.add_argument("--k2-builds", action="store_true",
-                    help="only time builds of K2 that differ in one place")
-    ap.add_argument("--k4-builds", action="store_true",
-                    help="only time builds of K4 that differ in one place")
+                    help="only time K1 over its launch shapes on the main "
+                         "paths' inputs")
     ap.add_argument("--changing-ops", action="store_true",
                     help="only name the operators of a train loss whose "
                          "outputs change from run to run")
@@ -1105,13 +1091,6 @@ def main() -> int:
     print(f"card: {dev_name}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    if args.k2_builds or args.k4_builds:
-        for kernel in ("k2", "k4"):
-            if getattr(args, f"{kernel}_builds"):
-                found = attention_variants(kernel, dev_name)
-                (out_dir / f"chip_profile_{kernel}_builds.json").write_text(
-                    json.dumps({"card": dev_name, "ms": found}, indent=1))
-        return 0
     if args.changing_ops:
         found = changing_ops(dev_name)
         (out_dir / "chip_profile_changing_ops.json").write_text(json.dumps(
@@ -1121,10 +1100,9 @@ def main() -> int:
         paths = (main_path_pool_inputs(dev_name)
                  if args.k1_shapes or "pool" in args.only else {})
         if args.k1_shapes:
-            found = {"shapes": k1_launch_shapes(dev_name, paths),
-                     "builds": k1_variants(dev_name, paths)}
             (out_dir / "chip_profile_k1_shapes.json").write_text(json.dumps(
-                {"card": dev_name, "ms": found}, indent=1))
+                {"card": dev_name, "ms": k1_launch_shapes(dev_name, paths)},
+                indent=1))
         if args.ab is not None:
             result = ab_kernels(args.ab.resolve(), dev_name, paths,
                                 args.only)
@@ -1245,7 +1223,7 @@ def main() -> int:
     del model, train_state, batch
 
     # one pretraining update of each task at r2r width on the 12,416-point
-    # buffer (8 trajectories x 21 steps), as chip_smoke.py times them
+    # buffer (8 trajectories x 21 steps), as chip_smoke.py drives them
     pcfg = pretrain_cli._resolve_config(
         pretrain_cli.parse_args(["--preset", "r2r"]))
     model = init_pretrain_params(pcfg.model, seed=1, device="cuda")

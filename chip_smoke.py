@@ -1,32 +1,18 @@
 #!/usr/bin/env python3
-"""Chip smoke run of the PyTorch/CUDA port (gridmm_tpu_torch) on one card.
+"""Integration check of the PyTorch/CUDA port (gridmm_tpu_torch) on one card.
 
     python3 chip_smoke.py
 
 Needs one NVIDIA Hopper card and the CUDA toolkit; imports nothing of JAX.
-Phases, in order (any failure raises and the exit code is not 0):
+It drives the port's paths end to end on the card and holds them to their
+plain versions, to the CPU and to each other. Each kernel against its plain
+version is tests/test_torch_cuda.py's job, speed is benchmark/run.py's,
+and profiles and kernel A/B timings are chip_profile.py's. Phases, in
+order (any failure raises and the exit code is not 0):
 
   (a) device: require CUDA, print the card's name and power limit, TF32 off;
   (b) build every kernel of the main paths from csrc/ (one nvcc per source,
       all at once);
-  (c) each kernel against its plain PyTorch version on the card, f32 and
-      bf16: the grid pool (K1: pooled, mask, denominator and cell max, with
-      an all-invalid row, a row whose points sit 90% in one cell, and two
-      runs that must give equal bits), LayerNorm (K3: every body, the
-      vector body at widths a warp or part of one takes, the scalar bodies
-      at odd widths and on an x off a 16-byte boundary), packed-qkv
-      attention (K2: bf16 on the tensor cores, also at L = 1, 17 and 64; f32
-      on the CUDA cores), per-head attention (K4: hd 1 to 256 with L = 1,
-      17, 50 and 197, and hd 80 at L = 257), both where K and V stream
-      through their ring (K2 at L = 1025 and 2048, K4 at L = 700 and 1025
-      and at hd 320 and 1024, past what K and V in shared memory once
-      held), and the two passes of the
-      pool's backward (K5a, K5b, also at an odd N and on ids off an 8-byte
-      boundary); then K1, K5a and K5b where the JAX pool takes a buffer that
-      they once refused (rows of 40,000 points at D = 768 in f32 and
-      bf16, 65,537 rows, a 300,000-point row that a block lists in chunks)
-      and K1 at forced launch shapes, each against its plain version and
-      twice for equal bits;
   (d) the main paths, each driven with every launch count set to 0 just
       before it and read just after:
       - the serving engine at full R2R width (r2r_config(), seeded random
@@ -68,7 +54,7 @@ Phases, in order (any failure raises and the exit code is not 0):
         weights over the same 6 requests x 18 steps; logits against a
         create engine on those weights (equal bits expected; 1e-5 x
         max|logit| at most), the graphed create engine against an eager
-        one the same way; last of all (after phase e), a step that waits on
+        one the same way; last of all (after phase f), a step that waits on
         the host must make the capture raise, and dropout on the card must
         still draw after it;
       - pretraining at r2r width: cli/pretrain.main --preset r2r --device
@@ -135,36 +121,12 @@ Phases, in order (any failure raises and the exit code is not 0):
         trajectories split 8 + 8 with uneven action counts and the clip
         active, against one process on all 16: the same loss, every leaf
         within 1e-5 of its max, K1, K5a and K5b launched on each rank;
-  (e) times with CUDA events (kernel, plain version, library yardstick,
-      bound; the pool at the serving, pipeline and train shapes, on the
-      skewed serving buffer and at N = 40,000 beside index_add_; K5a and
-      K5b held to equal bits over two calls at each shape timed; LayerNorm
-      at the tower's and the tiny tower's widths in both types; K4 at the
-      tiny tower's, B/16's and ViT-H/14's shapes beside SDPA on 4-D inputs
-      with its backend named; K2 at (4, 1025) and (2, 2048) and K4 at (64,
-      1025, 80) and (16, 600, 320), in both types, beside SDPA's fastest
-      backend; the launch floor beside the pool backward's
-      pass 2), encode
-      and pipeline views/s, the pipeline's peak device memory,
-      the serving step time (the graphed create engine, the eager one and
-      the graphed from_bundle engine, 25 steps each in two turns, host
-      clock), the bundle's export time, and the train update's time and
-      peak memory; K1, K5a and K5b at the pretraining buffer (B=8,
-      N=12,416, D=768 f32) beside their bounds, plain versions and library
-      calls; each pretraining task's update time (median of 3, host clock
-      and CUDA events) and peak memory; the VLN-CE path's kernels: K1, K5a
-      and K5b at the CE buffer (B=4, N=11,776, 20 x 588 filled), K2 and K3
-      at the grid tower's and the view tower's shapes for 48 views, SDPA
-      with its backend named; the CE rollout step (fused and host path,
-      the agent's own time per step) and the CE update's time and peak
-      memory; the int8 serving step (graphed create and from_bundle)
-      beside the f32 ones; each beside the card; every phase's seconds;
   (f) the entry points, each through its module function at full width
       with the launch counts set to 0 before it and read after it:
       cli/bench.run (its JSON line; K1 once, K2 12 and K3 26 times an
       iteration), cli/bench_latency.run (eager and CUDA-graphed steps at
-      batch 1 and 4), cli/bench_pool_bwd.run (the gradients within phase
-      c's K5 tolerances), cli/bench_train_update.run_one (batch 16 f32,
+      batch 1 and 4), cli/bench_pool_bwd.run (the gradients within the card
+      tests' K5 tolerances), cli/bench_train_update.run_one (batch 16 f32,
       a warm-up and 3 updates: K5a and K5b once a step, K1 twice),
       cli/bench_ce_step.run (4 envs with the view tower, fused and
       --legacy), cli/drive_episode.run (EPISODE OK), cli/
@@ -174,18 +136,14 @@ Phases, in order (any failure raises and the exit code is not 0):
       --tiny towers go through torch.export with the eager bits, and
       `export_serving --int8 --mesh auto` over a world of one (NCCL)
       serves the bits of phase d's unsharded --int8 bundle (r2r width);
-  (g) the kernels line (every kernel with a `ce` entry: its launches on
-      the run_ce path, K4's on the tiny CE agent's, and its times at the
-      CE shapes; K1, K2 and K3 with an `int8` entry, the kernels of the
-      mesh runs with a `mesh` entry: launches on the one-rank mesh and on
-      each of the two gloo ranks; each kernel's launches in phase f's
-      entry points under `entry_points`; K2 and K4 with a `long` entry,
-      their times at phase e's long shapes); (h) the result line, last.
+  (h) the result line, last.
 
 `python3 chip_smoke.py --ce-only` runs (a), (b) and the VLN-CE phases
 alone and prints no result line; `--entry-only` runs (a), (b) and (f).
 
-A longer report goes to chiprun_out/chip_smoke_report.json.
+The checks' readings and each phase's seconds go to
+chiprun_out/chip_smoke_report.json (chip_smoke_ce_report.json,
+chip_smoke_entry_report.json).
 """
 
 from __future__ import annotations
@@ -222,8 +180,7 @@ from gridmm_tpu_torch.ops.cuda.attention import (ATTENTION_FWD,
                                                  ATTENTION_QKV_FWD)
 from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
                                                  GRID_POOL_BWD2,
-                                                 GRID_POOL_FWD, bwd_tiles,
-                                                 grid_pool_bwd)
+                                                 GRID_POOL_FWD)
 from gridmm_tpu_torch.ops.cuda.layernorm import LAYERNORM_FWD
 from gridmm_tpu_torch.pipeline import encode_and_pool
 from gridmm_tpu_torch.serve.engine import NavServingEngine
@@ -255,10 +212,6 @@ from gridmm_tpu_torch.train.pretrain import (PretrainBatch,
 from gridmm_tpu_torch.utils import checkpoint as CK
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-# peak operation rates by input type (H100 SXM data sheet): bf16 products on
-# the tensor cores; f32 at full precision outside them
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 KERNELS = [GRID_POOL_FWD, ATTENTION_QKV_FWD, LAYERNORM_FWD, ATTENTION_FWD,
            GRID_POOL_BWD1, GRID_POOL_BWD2]
 SOURCES = ["grid_pool_fwd", "layernorm_fwd", "attention_qkv_fwd",
@@ -277,7 +230,6 @@ F32_TOL = 1e-4
 # f32 tower, card vs CPU (TF32 off), as the CPU parity tests hold towers
 TOWER_F32_TOL = 2e-4
 VIT_H_LAYERS = 2               # ViT-H/14 widths, depth cut from 32
-POOL_B, POOL_N, POOL_D = 8, 8832, 768
 SERVE_SLOTS, FIRST_STEPS, LATER_STEPS = 4, 15, 3
 # fused logits, kernel pool vs plain pool through the full-width navigator
 # in f32 (TF32 off): the pools differ only in summation order (~1e-6
@@ -400,54 +352,7 @@ def rel_err(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
-def cuda_ms(fn, iters=25, warmup=5) -> float:
-    """Mean device ms per call over `iters` calls, CUDA events, after
-    warm-up. The stream is held by a spin kernel while the host enqueues the
-    calls, so the events time them back to back on the device and a call
-    shorter than its Python wrapper is not timed at the host's pace."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    # twice the measured enqueue time at <= 2 GHz, plus 2 ms
-    torch.cuda._sleep(int((2.0 * enqueue_s + 2e-3) * 2e9))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 # ------------------------------------------------------------------ inputs
-def pool_case(kind, b, dtype, seed=0, n=POOL_N, d=POOL_D):
-    """Pool inputs: random cells with ~5% invalid; "edges" adds an
-    all-invalid row, a one-point cell (2, 7) and empty cells (row 3 < 50);
-    "skew" a row where cell 17 holds 90% of the points and an all-invalid
-    row."""
-    rng = np.random.default_rng(seed)
-    g = rng.standard_normal((b, n, d)).astype(np.float32)
-    cells = rng.integers(0, 196, size=(b, n)).astype(np.int32)
-    cells[rng.random((b, n)) < 0.05] = -1
-    w = (rng.standard_normal((b, n)) * 3.0).astype(np.float32)
-    if kind == "edges":
-        cells[1] = -1
-        cells[2][cells[2] == 7] = 8
-        cells[2, 100] = 7
-        cells[3][cells[3] < 50] = 60
-    if kind == "skew":
-        cells[0][rng.random(n) < 0.9] = 17
-        cells[1] = -1
-    return (torch.from_numpy(g).to("cuda", dtype),
-            torch.from_numpy(cells).cuda(), torch.from_numpy(w).cuda())
-
-
 def step_row(cfg, rng, t) -> StepInputs:
     """One synthetic StepInputs row (numpy, b=1) for step t of an episode:
     slot t+1 is the current node, slots 1..t+1 visited, three frontier
@@ -502,246 +407,6 @@ def request_text(cfg, rng):
 
 
 # ----------------------------------------------------------------- phases
-def check_pool_kernel(report):
-    """(c) kernel vs plain on the card: mask exact; cell max equal to
-    `cell_max` (-inf for empty cells); pooled within 1e-5 x max|pooled|
-    (f32) or one bf16 ulp of the inputs, 2^-8 x max|g| (bf16); denominator
-    within 1e-5 relative, its padding 0; a second run on the same inputs
-    gives the same bits in every output."""
-    worst = 0.0
-    for b in (POOL_B, SERVE_SLOTS):
-        for dtype in (torch.float32, torch.bfloat16):
-            for kind in ("random", "edges", "skew"):
-                g, cells, w = pool_case(kind, b, dtype)
-                got = GRID_POOL_FWD(g, cells, w)
-                again = GRID_POOL_FWD(g, cells, w)
-                got_p, got_m, got_d, got_x = got
-                want_p, want_m, want_d = GP.grid_scatter_pool_raw(g, cells, w)
-                torch.cuda.synchronize()
-                require(all(torch.equal(x, y) for x, y in zip(got, again)),
-                        f"two runs differ in bits ({b}, {dtype}, {kind})")
-                require(got_m.dtype == torch.bool
-                        and torch.equal(got_m, want_m),
-                        f"cell mask differs ({b}, {dtype}, {kind})")
-                require(torch.equal(got_x, GP.cell_max(cells, w)),
-                        f"cell max differs ({b}, {dtype}, {kind})")
-                atol = (1e-5 * want_p.abs().max().item()
-                        if dtype == torch.float32
-                        else 2.0 ** -8 * g.float().abs().max().item())
-                torch.testing.assert_close(got_p, want_p, rtol=1e-5,
-                                           atol=atol)
-                torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=0)
-                require((got_d[:, 196:] == 0).all().item(),
-                        "denominator padding is not 0")
-                if kind != "random":
-                    require(not got_m[1].any() and (got_p[1] == 0).all()
-                            and (got_d[1] == 0).all()
-                            and (got_x[1] == float("-inf")).all(),
-                            "all-invalid row is not empty")
-                if kind == "edges":
-                    require(got_m[2, 7] and not got_m[3, :50].any(),
-                            "one-point or empty cells wrong")
-                err = (got_p - want_p).abs().max().item()
-                worst = max(worst, err)
-                print(f"  grid_pool_fwd B={b} {str(dtype)[6:]:8s} {kind:6s}: "
-                      f"max|pooled diff| {err:.3e} (atol {atol:.3e}), "
-                      f"max|denom diff| "
-                      f"{(got_d - want_d).abs().max().item():.3e}, two runs "
-                      f"equal bit for bit")
-                del g, cells, w, got, again, want_p
-    report["grid_pool_fwd"]["max_abs_err"] = worst
-
-
-def bwd_inputs(g, cells, w, seed):
-    """The forward's residuals (kernel) and a random cotangent for (g, cells,
-    w) on the card."""
-    b, _, d = g.shape
-    _, _, denom, cmax = GRID_POOL_FWD(g, cells, w)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    cot = torch.randn((b, 196, d), generator=gen, device="cuda")
-    return cmax, denom, cot
-
-
-def check_pool_bwd_kernels(report):
-    """(c) K5a and K5b against grid_pool_bwd_terms on the card, B = 4 and
-    16, N = 8820 (the stacked buffer: 15 x 588, not a multiple of 512), 8832
-    and 8821 (odd: K5b's scalar head and tail), D = 768, f32 and bf16
-    features, random and edges; then K5b on ids and weights off an 8-byte
-    boundary (every point scalar).
-      dg: f32 within 1e-5 x max|dg| (one product on each side); bf16 within
-          one bf16 ulp of each value (2^-7 relative: both sides round the
-          same f32 product, which may sit on a rounding boundary);
-      s:  within 1e-5 x max|s| (a 768-term f32 dot product, other order);
-      S, dw: within 1e-4 x their max (S adds ~45 terms per cell tile by
-          tile, in another order than the plain version's)."""
-    worst = {"grid_pool_bwd1": 0.0, "grid_pool_bwd2": 0.0}
-    for kind in ("random", "edges"):
-        base = pool_case(kind, 16, torch.float32, seed=3)
-        for b in (4, 16):
-            for n in (8820, 8832, 8821):
-                for dtype in (torch.float32, torch.bfloat16):
-                    g, cells, w = (base[0][:b, :n].to(dtype).contiguous(),
-                                   base[1][:b, :n].contiguous(),
-                                   base[2][:b, :n].contiguous())
-                    cmax, denom, cot = bwd_inputs(g, cells, w, seed=b + n)
-                    got = grid_pool_bwd(g, cells, w, cmax, denom, cot)
-                    want = GP.grid_pool_bwd_terms(g, cells, w, denom, cot)
-                    torch.cuda.synchronize()
-                    require(got[0].dtype == dtype
-                            and got[1].dtype == torch.float32,
-                            "gradient dtypes")
-                    dg, want_dg = got[0].float(), want[0].float()
-                    if dtype == torch.float32:
-                        torch.testing.assert_close(
-                            dg, want_dg, rtol=0,
-                            atol=1e-5 * want_dg.abs().max().item())
-                    else:
-                        torch.testing.assert_close(dg, want_dg,
-                                                   rtol=2.0 ** -7, atol=1e-30)
-                    errs = {"dg": (dg - want_dg).abs().max().item()}
-                    for name, a, ref, tol in (("dw", got[1], want[1], 1e-4),
-                                              ("s", got[2], want[2], 1e-5),
-                                              ("S", got[3], want[3], 1e-4)):
-                        torch.testing.assert_close(
-                            a, ref, rtol=0,
-                            atol=tol * ref.abs().max().item(),
-                            msg=lambda m, name=name: f"{name}: {m}")
-                        errs[name] = (a - ref).abs().max().item()
-                    if kind == "edges":
-                        invalid = cells < 0
-                        require((dg[1] == 0).all() and (got[1][1] == 0).all()
-                                and (dg[invalid] == 0).all()
-                                and (got[1][invalid] == 0).all(),
-                                "invalid points have a gradient")
-                        require(got[1][2, 100].abs().item() <= 1e-6,
-                                "one-point cell: dw is not 0")
-                    worst["grid_pool_bwd1"] = max(worst["grid_pool_bwd1"],
-                                                  errs["dg"], errs["s"])
-                    worst["grid_pool_bwd2"] = max(worst["grid_pool_bwd2"],
-                                                  errs["dw"])
-                    print(f"  grid_pool_bwd B={b} N={n} {str(dtype)[6:]:8s} "
-                          f"{kind:6s}: max|diff| dg {errs['dg']:.3e} s "
-                          f"{errs['s']:.3e} S {errs['S']:.3e} dw "
-                          f"{errs['dw']:.3e} (max|dw| "
-                          f"{want[1].abs().max().item():.3e})")
-                    del g, cells, w, cmax, denom, cot, got, want, dg, want_dg
-        del base
-    g, cells, w = pool_case("edges", 4, torch.float32, seed=3, n=8820)
-    cmax, denom, cot = bwd_inputs(g, cells, w, seed=4)
-    shifted = [torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:]
-               .view_as(t).copy_(t) for t in (cells, w)]
-    require(all(t.data_ptr() % 8 for t in shifted), "ids not shifted")
-    got = grid_pool_bwd(g, *shifted, cmax, denom, cot)
-    want = GP.grid_pool_bwd_terms(g, cells, w, denom, cot)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got[1], want[1], rtol=0,
-                               atol=1e-4 * want[1].abs().max().item())
-    err = (got[1] - want[1]).abs().max().item()
-    worst["grid_pool_bwd2"] = max(worst["grid_pool_bwd2"], err)
-    print(f"  grid_pool_bwd B=4 N=8820 float32 ids and weights off 8 B: "
-          f"max|diff| dw {err:.3e}")
-    for name, err in worst.items():
-        report[name]["max_abs_err"] = err
-
-
-def random_pool_case(b, n, d, dtype, seed):
-    """(b, n, d) pool inputs on the card: ids in [-1, 198), weights x 3."""
-    rng = np.random.default_rng(seed)
-    g = torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32))
-    cells = rng.integers(-1, 198, size=(b, n)).astype(np.int32)
-    w = (rng.standard_normal((b, n)) * 3.0).astype(np.float32)
-    return (g.to("cuda", dtype), torch.from_numpy(cells).cuda(),
-            torch.from_numpy(w).cuda())
-
-
-def check_pool_any_shape(report):
-    """(c) K1, K5a and K5b where the JAX pool takes a buffer that the
-    kernels once refused: rows of 40,000 points at D = 768 (f32 and bf16),
-    65,537 rows (the grid's y extent plus 2), a row whose cluster's blocks
-    list their shares in three chunks each (300,000 points), and K1 at
-    forced launch shapes (a thousand-point chunk, an odd cluster) on the
-    skewed serving buffer.
-    Against the plain versions with phase (c)'s tolerances, and a second
-    call with equal bits."""
-    worst = {"grid_pool_fwd": 0.0, "grid_pool_bwd1": 0.0,
-             "grid_pool_bwd2": 0.0}
-    cases = [(2, 40000, 768, torch.float32), (2, 40000, 768, torch.bfloat16),
-             (65537, 4, 8, torch.float32), (1, 300000, 8, torch.float32)]
-    for b, n, d, dtype in cases:
-        g, cells, w = random_pool_case(b, n, d, dtype, seed=n + b)
-        got = GRID_POOL_FWD(g, cells, w)
-        again = GRID_POOL_FWD(g, cells, w)
-        want_p, want_m, want_d = GP.grid_scatter_pool_raw(g, cells, w)
-        torch.cuda.synchronize()
-        require(all(torch.equal(x, y) for x, y in zip(got, again)),
-                f"K1: two runs differ in bits ({b}, {n}, {d}, {dtype})")
-        require(torch.equal(got[1], want_m)
-                and torch.equal(got[3], GP.cell_max(cells, w)),
-                f"K1: mask or cell max differs ({b}, {n}, {d}, {dtype})")
-        atol = (1e-5 * want_p.abs().max().item() if dtype == torch.float32
-                else 2.0 ** -8 * g.float().abs().max().item())
-        torch.testing.assert_close(got[0], want_p, rtol=1e-5, atol=atol)
-        torch.testing.assert_close(got[2], want_d, rtol=1e-5, atol=0)
-        err_f = (got[0] - want_p).abs().max().item()
-        worst["grid_pool_fwd"] = max(worst["grid_pool_fwd"], err_f)
-        line = f"  K1 ({b}, {n}, {d}) {str(dtype)[6:]}: {err_f:.3e}"
-        if n != 300000:
-            cot = torch.randn((b, 196, d), device="cuda",
-                              generator=torch.Generator("cuda").manual_seed(1))
-            bwd = grid_pool_bwd(g, cells, w, got[3], got[2], cot)
-            bwd2 = grid_pool_bwd(g, cells, w, got[3], got[2], cot)
-            want = GP.grid_pool_bwd_terms(g, cells, w, got[2], cot)
-            torch.cuda.synchronize()
-            require(all(torch.equal(x, y) for x, y in zip(bwd, bwd2)),
-                    f"K5: two runs differ in bits ({b}, {n}, {d})")
-            dg, want_dg = bwd[0].float(), want[0].float()
-            if dtype == torch.float32:
-                torch.testing.assert_close(
-                    dg, want_dg, rtol=0,
-                    atol=1e-5 * want_dg.abs().max().item())
-            else:
-                torch.testing.assert_close(dg, want_dg, rtol=2.0 ** -7,
-                                           atol=1e-30)
-            errs = {}
-            for name, a, ref, tol in (("dw", bwd[1], want[1], 1e-4),
-                                      ("s", bwd[2], want[2], 1e-5),
-                                      ("S", bwd[3], want[3], 1e-4)):
-                torch.testing.assert_close(
-                    a, ref, rtol=0, atol=tol * ref.abs().max().item(),
-                    msg=lambda m, name=name: f"{name}: {m}")
-                errs[name] = (a - ref).abs().max().item()
-            errs["dg"] = (dg - want_dg).abs().max().item()
-            worst["grid_pool_bwd1"] = max(worst["grid_pool_bwd1"],
-                                          errs["dg"], errs["s"])
-            worst["grid_pool_bwd2"] = max(worst["grid_pool_bwd2"],
-                                          errs["dw"])
-            line += (f"; K5 dg {errs['dg']:.3e} s {errs['s']:.3e} S "
-                     f"{errs['S']:.3e} dw {errs['dw']:.3e}")
-            del bwd, bwd2, want, dg, want_dg, cot
-        print(line + "; two runs equal bit for bit")
-        del g, cells, w, got, again, want_p
-    g, cells, w = pool_case("skew", SERVE_SLOTS, torch.float32, seed=2)
-    want = GP.grid_scatter_pool_raw(g, cells, w)
-    for shape in ((1, 1, 1000), (2, 3, 777), (3, 7, 300)):
-        outs = (torch.empty((SERVE_SLOTS, 196, POOL_D), device="cuda"),
-                torch.empty((SERVE_SLOTS, 196), dtype=torch.bool,
-                            device="cuda"),
-                torch.empty((SERVE_SLOTS, 256), device="cuda"),
-                torch.empty((SERVE_SLOTS, 196), device="cuda"))
-        GRID_POOL_FWD.launch(g, cells, w, *outs, shape=shape)
-        torch.cuda.synchronize()
-        require(torch.equal(outs[1], want[1]), f"K1 mask at {shape}")
-        torch.testing.assert_close(outs[0], want[0], rtol=1e-5,
-                                   atol=1e-5 * want[0].abs().max().item())
-        torch.testing.assert_close(outs[2], want[2], rtol=1e-5, atol=0)
-        err = (outs[0] - want[0]).abs().max().item()
-        worst["grid_pool_fwd"] = max(worst["grid_pool_fwd"], err)
-        print(f"  K1 skewed serving buffer at (group, row_split, chunk) "
-              f"{shape}: {err:.3e}")
-    for name, err in worst.items():
-        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
-
-
 def run_engine(model, cfg, rows, texts, make=None, cuda_graph=True):
     """Drive a 4-slot engine through the request schedule, checking every
     step. The engine is `make()`, or a `create` engine over `model` (CUDA-
@@ -791,7 +456,8 @@ def check_outputs(out, step_rows):
 
 def main_path(report):
     """(d) full-width serving on the card through the kernel, then the same
-    steps through the plain pool; returns the warm engine and its config."""
+    steps through the plain pool; returns the config, the requests' step
+    rows and texts, and the kernel run's fused logits."""
     cfg = r2r_config()
     rng = np.random.default_rng(0)
     n_req = SERVE_SLOTS + 2
@@ -829,7 +495,6 @@ def main_path(report):
     require(launches["grid_pool_fwd"] == n_steps + 1,
             f"grid_pool_fwd launched {launches['grid_pool_fwd']} times in "
             f"{n_steps} steps and a warm-up")
-    report["grid_pool_fwd"]["launches"] = launches["grid_pool_fwd"]
 
     # the same steps with the plain pool on the card
     with plain_ops():
@@ -848,7 +513,7 @@ def main_path(report):
                            "steps": n_steps, "launches": launches,
                            "fused_logits_max_abs_diff_vs_plain": worst,
                            "parameters": n_params}
-    return eng, cfg, rows, texts, fused_kernel
+    return cfg, rows, texts, fused_kernel
 
 
 def tiny_cpu_reference():
@@ -1048,8 +713,7 @@ def bundle_path(report, cfg, rows, texts, dev_name):
     """(d) the serving bundle at r2r_config() width: exported on the card,
     saved, loaded and served through from_bundle (CUDA-graphed) with other
     weights than it was exported with, against a create engine on those
-    weights (graphed) and an eager one.
-    Returns (graphed live engine, eager engine, bundle engine)."""
+    weights (graphed) and an eager one."""
     from gridmm_tpu_torch.utils.export import (export_navigator_serving,
                                                save_serving_bundle)
 
@@ -1085,8 +749,8 @@ def bundle_path(report, cfg, rows, texts, dev_name):
     require(launches["grid_pool_fwd"] == n_steps + 1,
             f"bundle path: K1 launched {launches['grid_pool_fwd']} times")
     live_logits, live = run_engine(weights, cfg, rows, texts)
-    eager_logits, eager = run_engine(weights, cfg, rows, texts,
-                                     cuda_graph=False)
+    eager_logits, _ = run_engine(weights, cfg, rows, texts,
+                                 cuda_graph=False)
     bundle_diff, bundle_bits = compare_logits(
         served_logits, live_logits, "from_bundle vs create")
     graph_diff, graph_bits = compare_logits(
@@ -1109,7 +773,6 @@ def bundle_path(report, cfg, rows, texts, dev_name):
         "graphed_vs_eager_max_abs_diff": graph_diff,
         "graphed_vs_eager_equal_bits": graph_bits,
         "profiler": seen, "weights_seed": BUNDLE_SEED}
-    return live, eager, served
 
 
 def check_failed_capture(cfg):
@@ -1142,212 +805,6 @@ def check_failed_capture(cfg):
     print(f"  a step that waits on the host: the engine raised ({msg}...); "
           f"dropout on the card afterwards kept {share:.4f} of 65,536")
     return {"raised": msg, "dropout_kept_share": share}
-
-
-def time_serving(engines, cfg, dev_name):
-    """(e) serving step, host clock around each synchronised step, 25 steps
-    an engine, the engines in turns twice (A, B, C, C, B, A)."""
-    rng = np.random.default_rng(9)
-    step_rows_ = {slot: step_row(cfg, rng, 5)
-                  for slot in range(SERVE_SLOTS)}
-    order = list(engines) + list(reversed(engines))
-    ms = {label: [] for label, _ in engines}
-    for label, eng in order:
-        for _ in range(3):
-            eng.step(step_rows_)
-        torch.cuda.synchronize()
-        for _ in range(25):
-            t0 = time.perf_counter()
-            eng.step(step_rows_)
-            torch.cuda.synchronize()
-            ms[label].append((time.perf_counter() - t0) * 1e3)
-    out = {}
-    for label, vals in ms.items():
-        out[label] = {"median": float(np.median(vals)), "min": min(vals),
-                      "max": max(vals), "slots": SERVE_SLOTS,
-                      "iters": len(vals)}
-        print(f"  serving step, {label}, {SERVE_SLOTS} slots, full buffer: "
-              f"median {out[label]['median']:.3f} ms (min "
-              f"{out[label]['min']:.3f}, max {out[label]['max']:.3f}) over "
-              f"{len(vals)} steps in two turns, host clock [{dev_name}]")
-    return out
-
-
-def pool_bytes(g, cells):
-    """Bytes the pool must move for these inputs: the features of valid
-    points, every cell id and weight, and the outputs (pooled f32, mask,
-    denominator, cell max)."""
-    b, n, d = g.shape
-    valid = int(((cells >= 0) & (cells < 196)).sum())
-    return (valid * d * g.element_size() + b * n * 8
-            + b * 196 * d * 4 + b * 196 + b * 256 * 4 + b * 196 * 4)
-
-
-def time_pool(g, cells, w, label, dev_name):
-    """(e) times of one pool configuration; returns a dict of ms. `ms` is
-    the dispatching pool as the main paths call it (allocations and the one
-    launch), `kernel_only_ms` the bare launch into preallocated outputs."""
-    b, n, d = g.shape
-    outs = GRID_POOL_FWD(g, cells, w)
-    cmax = outs[3]
-    # yardstick: index_add_ of the pre-weighted features into (B*256, D)
-    # rows (invalid points go to each row's unused cell 255)
-    valid = (cells >= 0) & (cells < 196)
-    cidx = torch.where(valid, cells, torch.zeros_like(cells)).long()
-    e = torch.exp(w - cmax.gather(1, cidx)).masked_fill(~valid, 0.0)
-    src = (e[..., None] * g.float()).reshape(-1, d)
-    rows = (torch.arange(b, device="cuda")[:, None] * 256
-            + torch.where(valid, cidx, torch.full_like(cidx, 255))
-            ).reshape(-1)
-    flat = torch.zeros((b * 256, d), device="cuda")
-    before = GRID_POOL_FWD.launches
-    times = {
-        "ms": cuda_ms(lambda: GP.grid_pool_raw(g, cells, w)),
-        "kernel_only_ms": cuda_ms(lambda: GRID_POOL_FWD.launch(
-            g, cells, w, *outs)),
-        "plain_ms": cuda_ms(lambda: GP.grid_scatter_pool_raw(g, cells, w),
-                            iters=10, warmup=2),
-        "library_ms": cuda_ms(lambda: flat.index_add_(0, rows, src),
-                              iters=10, warmup=2),
-    }
-    require(GRID_POOL_FWD.launches > before, "timed pool did not launch")
-    times["bound_ms"] = pool_bytes(g, cells) / HBM_BYTES_PER_S * 1e3
-    times["bound_by"] = "bytes"
-    times["shape"] = label
-    # how the points spread over the cells: the blocks of one cluster own a
-    # cell, so a cell that holds much of a row sets the kernel's time
-    per_cell = torch.zeros((b, 256), device="cuda").scatter_add_(
-        1, cidx, valid.float())
-    times["valid_fraction"] = valid.float().mean().item()
-    times["largest_cell_share"] = (
-        per_cell.amax(dim=1) / per_cell.sum(dim=1).clamp_min(1)).max().item()
-    print(f"  grid_pool_fwd {label}: pool {times['ms']:.4f} ms (kernel alone "
-          f"{times['kernel_only_ms']:.4f}), plain {times['plain_ms']:.4f}, "
-          f"index_add_ {times['library_ms']:.4f}, byte bound "
-          f"{times['bound_ms']:.4f} ms; {100 * times['valid_fraction']:.1f}% "
-          f"of the points valid, the fullest cell holds "
-          f"{100 * times['largest_cell_share']:.1f}% of its row's "
-          f"[{dev_name}]")
-    return times
-
-
-# ------------------------------------------------ (c) the encoder's kernels
-# (rows, C, x off a 16-byte boundary) of the LayerNorm check: the tower's
-# rows (192 images x 50 tokens, C=768) and the tiny tower's (C=64) run the
-# vector body (a warp a row, and 8 or 16 lanes a row); 520 and 40 leave
-# lanes idle; 17, 1500 and the shifted x run the scalar bodies
-LN_CASES = ((9600, 768, False), (2400, 64, False), (333, 520, False),
-            (1001, 40, False), (37, 1500, False), (5, 17, False),
-            (600, 768, True))
-
-
-def check_layernorm_kernel(report):
-    """(c) K3 vs plain at LN_CASES: f32 within 1e-5 (summation order),
-    bf16 within one bf16 ulp (2^-7 relative: both round nearly one f32
-    value)."""
-    worst = 0.0
-    rng = np.random.default_rng(11)
-    for rows, c, shifted in LN_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.from_numpy((rng.standard_normal((rows, c)) * 2.0 + 0.5
-                                  ).astype(np.float32)).to("cuda", dtype)
-            w = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(
-                np.float32)).cuda()
-            b = torch.from_numpy((rng.standard_normal(c) * 0.1).astype(
-                np.float32)).cuda()
-            if shifted:
-                buf = torch.empty(rows * c + 3, dtype=dtype, device="cuda")
-                x = buf[3:].view(rows, c).copy_(x)
-                require(x.data_ptr() % 16 != 0, "x is not shifted")
-            got = LAYERNORM_FWD(x, w, b)
-            want = LN.layernorm_plain(x, w, b)
-            torch.cuda.synchronize()
-            rtol, atol = ((1e-5, 1e-5) if dtype == torch.float32
-                          else (2.0 ** -7, 1e-5))
-            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                                       atol=atol)
-            err = (got.float() - want.float()).abs().max().item()
-            worst = max(worst, err)
-            print(f"  layernorm_fwd ({rows}, {c}) {str(dtype)[6:]:8s}"
-                  f"{' x off 16 B' if shifted else ''}: max|diff| "
-                  f"{err:.3e} (rtol {rtol:.1e})")
-    report["layernorm_fwd"]["max_abs_err"] = worst
-
-
-def attn_atol(dtype, v):
-    """f32: 2e-5 (summation order, online softmax); bf16: the plain version
-    rounds the probabilities to bf16 before PV and both round the output,
-    each within 2^-8 relative, so 2^-6 x max|v| bounds the difference."""
-    if dtype == torch.float32:
-        return 2e-5
-    return 2.0 ** -6 * v.float().abs().max().item()
-
-
-# K4's (hd, L, slices) cases: every padded width of both bodies (hd 1 to
-# 256, 20 and 200 off a 16-byte row) at the edges of the 16-key and
-# 64-query tiles, and ViT-H/14's (80, 257), on 768 slices; then K and V
-# streamed through the ring (L = 700 and 1025) and hd above 256 (the wide
-# kernels), on fewer slices, so that the plain version's (BH, L, L) scores
-# stay small
-ATTN_CASES = (tuple((hd, length, 768)
-                    for hd in (1, 16, 20, 48, 64, 80, 128, 200, 256)
-                    for length in (1, 17, 50, 197)) + ((80, 257, 768),)
-              + ((80, 1025, 64), (1, 1025, 64), (256, 700, 64),
-                 (320, 600, 16), (320, 17, 16), (1024, 60, 16)))
-# K2's (B, L) cases past what K and V in shared memory once held
-QKV_LONG_CASES = ((4, 1025), (2, 2048))
-
-
-def check_attention_kernels(report):
-    """(c) K2 at clip_b32 (192, 50, 2304), B/16 (32, 197, 2304) and
-    QKV_LONG_CASES, and in bf16 (the tensor-core body) at L = 1, 17 and 64,
-    the edges of its 16-key and 64-key tiles; K4 at ATTN_CASES; both dtypes.
-    Inputs at scale 2.0 give peaked softmaxes, so a fragment read from the
-    wrong lane shows."""
-    rng = np.random.default_rng(12)
-    worst = {"attention_qkv_fwd": 0.0, "attention_fwd": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        edges = ((8, 1), (8, 17), (8, 64)) if dtype == torch.bfloat16 else ()
-        for b, length in ((192, 50), (32, 197)) + edges + QKV_LONG_CASES:
-            qkv = torch.from_numpy((rng.standard_normal((b, length, 2304))
-                                    * 2.0).astype(np.float32)).to("cuda",
-                                                                  dtype)
-            got = ATTENTION_QKV_FWD(qkv, 12)
-            want = ATT.attention_qkv_plain(qkv, 12)
-            torch.cuda.synchronize()
-            atol = attn_atol(dtype, qkv[..., 1536:])
-            torch.testing.assert_close(got.float(), want.float(),
-                                       rtol=2e-5 if atol == 2e-5 else 0.0,
-                                       atol=atol)
-            require(got.shape == want.shape and got.dtype == dtype,
-                    "attention_qkv_fwd: output shape or type")
-            err = (got.float() - want.float()).abs().max().item()
-            worst["attention_qkv_fwd"] = max(worst["attention_qkv_fwd"], err)
-            print(f"  attention_qkv_fwd ({b}, {length}, 2304) "
-                  f"{str(dtype)[6:]:8s}: max|diff| {err:.3e} "
-                  f"(atol {atol:.3e})")
-        gen = torch.Generator(device="cuda").manual_seed(12)
-        for hd, length, bh in ATTN_CASES:
-            q, k, v = ((2.0 * torch.randn((bh, length, hd), generator=gen,
-                                          device="cuda")).to(dtype)
-                       for _ in range(3))
-            got = ATTENTION_FWD(q, k, v)
-            want = ATT.attention_plain(q, k, v)
-            torch.cuda.synchronize()
-            require(got.shape == want.shape and got.dtype == dtype,
-                    "attention_fwd: output shape or type")
-            atol = attn_atol(dtype, v)
-            torch.testing.assert_close(
-                got.float(), want.float(),
-                rtol=2e-5 if atol == 2e-5 else 0.0, atol=atol)
-            err = (got.float() - want.float()).abs().max().item()
-            worst["attention_fwd"] = max(worst["attention_fwd"], err)
-            print(f"  attention_fwd ({bh}, {length}, {hd}) "
-                  f"{str(dtype)[6:]:8s}: max|diff| {err:.3e} "
-                  f"(atol {atol:.3e})")
-            del q, k, v, got, want
-    for name, err in worst.items():
-        report[name]["max_abs_err"] = err
 
 
 # ------------------------------------------------ (d) the encoder's paths
@@ -1424,7 +881,6 @@ def extractor_path(report):
         "views_per_s_with_rendering": CLIP_PANOS * VIEWS / wall,
         "bf16_rel_err_vs_plain": err_bf16, "f32_max_abs_diff_vs_plain":
             err_f32}
-    return ex
 
 
 def pipeline_inputs(cfg, b, dtype, seed=0, iters=None):
@@ -1556,7 +1012,6 @@ def pipeline_path(report):
         "tower_weight_bytes": weights,
         "pipeline_peak_bytes": peak - held, "bf16_rel_err_vs_plain": err_bf16,
         "f32_max_abs_diff_vs_plain": err_f32}
-    return model, cfg
 
 
 def tiny_tower_path(report):
@@ -1587,7 +1042,6 @@ def tiny_tower_path(report):
           f"(tolerance {F32_TOL})")
     report["tiny_tower"] = {"launches": launches,
                             "card_vs_cpu_max_abs_diff": err}
-    return launches["attention_fwd"]
 
 
 def vit_h14_config(dtype):
@@ -1654,7 +1108,6 @@ def vit_h14_tower_path(report):
         "launches_f32": launches, "launches_bf16": launches16,
         "f32_card_vs_cpu_max_abs_diff": err_f32,
         "bf16_rel_err_vs_plain": err_bf16}
-    return launches16["attention_fwd"]
 
 
 # ------------------------------------------------ (d) the training path
@@ -1847,9 +1300,6 @@ def training_path(report):
         "loss_grad_norm": metrics, "launches": launches,
         "loss_kernels": loss_k, "loss_plain_ops": loss_p,
         "worst_grad_diff_vs_plain": worst, "remat_steps": remat}
-    for k in (GRID_POOL_BWD1, GRID_POOL_BWD2):
-        report[k.name]["launches"] = launches[k.name]
-    return state, step, batch, cfg
 
 
 def tiny_update_cpu_reference():
@@ -1916,8 +1366,7 @@ def pretraining_path(report):
     --accum_steps 2 window, each with the launch counts reset before and
     read after; then 3 updates of each task on one fixed batch (the loss
     must fall), the first update's loss and gradients against the plain
-    ops, and a tiny update of each of the four tasks card vs CPU. Returns
-    (state, fixed batch, cfg) for the times of phase e."""
+    ops, and a tiny update of each of the four tasks card vs CPU."""
     cfg = pretrain_cli_mod._resolve_config(
         pretrain_cli_mod.parse_args(["--preset", "r2r"]))
     ppstep = cfg.grid.points_per_step
@@ -2019,7 +1468,6 @@ def pretraining_path(report):
     del model
     res["tiny_card_vs_cpu"] = tiny_pretrain_cpu_reference()
     report["pretrain"] = res
-    return state, batch, cfg
 
 
 def tiny_pretrain_cpu_reference():
@@ -2185,469 +1633,17 @@ def checkpoint_import_path(report, cfg, rows, texts, dev_name):
     del imported, direct
 
 
-# --------------------------------------------------- (e) training times
-def bwd_bytes(g, cells):
-    """Bytes pass 1 must move: the features of valid points, every gradient
-    row, the cotangent, ids and weights, s, and the per-cell residuals."""
-    b, n, d = g.shape
-    valid = int(((cells >= 0) & (cells < 196)).sum())
-    return (valid * d * g.element_size() + b * n * d * g.element_size()
-            + b * 196 * d * 4 + b * n * 12 + b * (196 + 2 * 256) * 4)
-
-
-def time_pool_bwd(g, cells, w, label, dev_name):
-    """(e) K5a and K5b at one shape: each kernel alone, the plain version
-    (grid_pool_bwd_terms, both passes; pass 2 alone for K5b) and the
-    library yardstick (autograd through the index_add_ formulation of the
-    forward, which covers both passes, so it stands in K5a's row only)."""
-    b, n, d = g.shape
-    cmax, denom, cot = bwd_inputs(g, cells, w, seed=1)
-    d_fts, d_w, s, big_s = grid_pool_bwd(g, cells, w, cmax, denom, cot)
-    # S is summed in an order fixed by the shape: a second call gives the
-    # same bits in all four outputs
-    again = grid_pool_bwd(g, cells, w, cmax, denom, cot)
-    require(all(torch.equal(x, y) for x, y in
-                zip((d_fts, d_w, s, big_s), again)),
-            f"two calls of the pool backward differ in bits ({label})")
-    del again
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    code = 0 if g.dtype == torch.float32 else 1
-    tiles = bwd_tiles(b, n, sms)
-    partial = torch.empty((b * tiles, 256), device="cuda")
-    done = torch.zeros((b,), dtype=torch.int32, device="cuda")
-
-    def pass1():
-        done.zero_()
-        GRID_POOL_BWD1.launch(
-            g.device, g.data_ptr(), code, cells.data_ptr(), w.data_ptr(),
-            cmax.data_ptr(), denom.data_ptr(), cot.data_ptr(),
-            d_fts.data_ptr(), s.data_ptr(), big_s.data_ptr(),
-            partial.data_ptr(), done.data_ptr(), b, n, d, 196, tiles)
-
-    def pass2(cells, w, cmax, denom, big_s, s, d_w, valid, idx):
-        GRID_POOL_BWD2.launch(
-            cells.device, cells.data_ptr(), w.data_ptr(), cmax.data_ptr(),
-            denom.data_ptr(), big_s.data_ptr(), s.data_ptr(),
-            d_w.data_ptr(), b, n, 196)
-
-    valid = (cells >= 0) & (cells < 196)
-    idx = torch.where(valid, cells, torch.zeros_like(cells)).long()
-
-    def plain_pass2(cells, w, cmax, denom, big_s, s, d_w, valid, idx):
-        den = denom[:, :196].gather(1, idx)
-        p = (torch.exp(w - cmax.gather(1, idx)) / den.clamp_min(1e-30)
-             ).masked_fill(~valid, 0.0)
-        return p * (s - big_s.gather(1, idx))
-
-    gg = g.detach().requires_grad_()
-    ww = w.detach().requires_grad_()
-
-    pooled = GP.grid_scatter_pool_raw(gg, cells, ww)[0]
-
-    def library():
-        torch.autograd.grad(pooled, (gg, ww), cot, retain_graph=True)
-
-    t1 = {"ms": cuda_ms(pass1, iters=10, warmup=2),
-          "plain_ms": cuda_ms(lambda: GP.grid_pool_bwd_terms(
-              g, cells, w, denom, cot), iters=5, warmup=1),
-          "library_ms": cuda_ms(library, iters=5, warmup=1)}
-    del pooled
-    pass1()
-    # pass 2 reads 16 bytes per point and per-cell tables: cycle through
-    # copies so that it reads them from device memory, not from the L2
-    bytes2 = b * n * 16 + b * (196 + 2 * 256) * 4
-    sets2 = [tuple(t.clone() for t in (cells, w, cmax, denom, big_s, s, d_w,
-                                       valid, idx))
-             for _ in range(copies_for(bytes2))]
-    t2 = {"ms": rotating_ms(pass2, sets2, iters=len(sets2)),
-          "plain_ms": rotating_ms(plain_pass2, sets2, iters=len(sets2)),
-          "library_ms": None,
-          # the same inputs on every call, so from the L2
-          "l2_ms": cuda_ms(lambda: pass2(*sets2[0]), iters=30)}
-    del sets2
-    # the launch floor: the smallest kernel, timed the same way
-    one = torch.ones(1, device="cuda")
-    t2["floor_ms"] = cuda_ms(lambda: torch.add(one, one, out=one), iters=30)
-    flops = 4.0 * int(valid.sum()) * d
-    t1["bound_ms"], t1["bound_by"] = bound(bwd_bytes(g, cells), flops,
-                                           torch.float32)
-    t2["bound_ms"], t2["bound_by"] = bound(
-        bytes2, 6.0 * b * n, torch.float32)
-    t1["both_passes_ms"] = cuda_ms(
-        lambda: grid_pool_bwd(g, cells, w, cmax, denom, cot), iters=10,
-        warmup=2)
-    for t in (t1, t2):
-        t["shape"] = label
-    t1["same_bits_twice"] = True
-    print(f"  grid_pool_bwd1 {label}: kernel {t1['ms']:.4f} ms, plain (both "
-          f"passes) {t1['plain_ms']:.4f}, autograd of the index_add_ "
-          f"forward {t1['library_ms']:.4f}, bound {t1['bound_ms']:.4f} ms "
-          f"({t1['bound_by']}); two calls equal bit for bit in d_fts, "
-          f"d_weights, s and S [{dev_name}]")
-    print(f"  grid_pool_bwd2 {label}: kernel {t2['ms']:.5f} ms "
-          f"({t2['l2_ms']:.5f} from L2), plain {t2['plain_ms']:.5f}, bound "
-          f"{t2['bound_ms']:.5f} ms ({t2['bound_by']}), launch floor (a "
-          f"one-element torch.add) {t2['floor_ms']:.5f} ms; both passes "
-          f"through the wrapper {t1['both_passes_ms']:.4f} ms [{dev_name}]")
-    return t1, t2
-
-
-def time_train_update(state, step, batch, dev_name,
-                      what="train update, r2r_config() f32"):
-    """(e) ms per train update (host clock around synchronised updates, and
-    CUDA-event time on the stream) and the update's peak device memory."""
-    step(state, batch, seed=0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    host_ms, event_ms = [], []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        step(state, batch, seed=0)
-        end.record()
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        event_ms.append(start.elapsed_time(end))
-    peak = torch.cuda.max_memory_allocated()
-    b, s = batch.steps.target.shape[1], batch.steps.target.shape[0]
-    res = {"batch": b, "steps": s, "host_ms": host_ms, "event_ms": event_ms,
-           "host_ms_median": float(np.median(host_ms)),
-           "event_ms_median": float(np.median(event_ms)),
-           "peak_device_bytes": peak, "held_before_bytes": held}
-    print(f"  {what}, {b} trajectories x {s} steps: "
-          f"host clock {[round(x, 1) for x in host_ms]} ms, CUDA events "
-          f"{[round(x, 1) for x in event_ms]} ms; peak device memory "
-          f"{peak / 2**30:.3f} GiB, of which {held / 2**30:.3f} GiB were "
-          f"held before the update (weights, AdamW moments, the batch and "
-          f"earlier phases' models) [{dev_name}]")
-    return res
-
-
-def time_pretrain_updates(state, cfg, batch, dev_name):
-    """(e) ms per pretraining update of each task at r2r width (8 x 21,
-    12,416-point buffer, f32, dropout on as the CLI trains): host clock
-    around a synchronised update and CUDA-event time on the stream, median
-    of 3 after one warm-up, and each task's peak device memory."""
-    state.model.train()
-    out = {}
-    for task in PRETRAIN_TASKS:
-        step = make_pretrain_step(cfg, task)
-        step(state, batch)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        host_ms, event_ms = [], []
-        for _ in range(3):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            step(state, batch)
-            end.record()
-            torch.cuda.synchronize()
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-            event_ms.append(start.elapsed_time(end))
-        peak = torch.cuda.max_memory_allocated()
-        out[task] = {"host_ms": host_ms, "event_ms": event_ms,
-                     "host_ms_median": float(np.median(host_ms)),
-                     "event_ms_median": float(np.median(event_ms)),
-                     "peak_device_bytes": peak, "held_before_bytes": held}
-        print(f"  pretrain update, {task}, {PRETRAIN_B} x {PRETRAIN_S} at "
-              f"r2r width, f32: host clock median "
-              f"{out[task]['host_ms_median']:.1f} ms "
-              f"{[round(x, 1) for x in host_ms]}, CUDA events "
-              f"{[round(x, 1) for x in event_ms]} ms; peak device memory "
-              f"{peak / 2**30:.3f} GiB, of which {held / 2**30:.3f} GiB "
-              f"were held before the update [{dev_name}]")
-    return out
-
-
-# ------------------------------------------------------- (e) encoder times
-def rotating_ms(fn, arg_sets, iters=30):
-    """cuda_ms over calls that cycle through `arg_sets`, so that a kernel
-    whose inputs fit in the 50 MB L2 still reads them from device memory."""
-    i = [0]
-
-    def call():
-        fn(*arg_sets[i[0] % len(arg_sets)])
-        i[0] += 1
-    return cuda_ms(call, iters=iters)
-
-
-def copies_for(nbytes):
-    """Input sets needed to spread the reads over more than twice the L2."""
-    return max(1, math.ceil(100e6 / nbytes))
-
-
-def bound(nbytes, ops, dtype):
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
-    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
-
-
-def time_kernel(label, kernel, call, plain, library, arg_sets, nbytes, ops,
-                dtype, dev_name):
-    """Kernel, plain and library times at one shape; returns a dict."""
-    before = kernel.launches
-    t = {"ms": rotating_ms(call, arg_sets),
-         "plain_ms": rotating_ms(plain, arg_sets),
-         "library_ms": rotating_ms(library, arg_sets)}
-    require(kernel.launches > before, f"timed {kernel.name} did not launch")
-    t["bound_ms"], t["bound_by"] = bound(nbytes, ops, dtype)
-    t["shape"] = label
-    print(f"  {kernel.name} {label}: kernel {t['ms']:.5f} ms, plain "
-          f"{t['plain_ms']:.5f}, library {t['library_ms']:.5f}, bound "
-          f"{t['bound_ms']:.5f} ms ({t['bound_by']}) [{dev_name}]")
-    return t
-
-
-def _cuda_normal(rng, shape, dtype, scale=1.0):
-    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
-        np.float32)).to("cuda", dtype)
-
-
-def time_layernorm_case(rng, rows, c, dtype, dev_name):
-    """K3 at (rows, c) in `dtype`, beside F.layer_norm (which takes scale
-    and bias in x's type: they are cast once, outside the timed call)."""
-    f32 = torch.float32
-    size = 2 if dtype == torch.bfloat16 else 4
-    nbytes = 2 * rows * c * size + 2 * c * 4
-    sets = []
-    for _ in range(copies_for(nbytes)):
-        w = _cuda_normal(rng, (c,), f32) + 1.0
-        b = _cuda_normal(rng, (c,), f32)
-        sets.append((_cuda_normal(rng, (rows, c), dtype), w, b, w.to(dtype),
-                     b.to(dtype)))
-    return time_kernel(
-        f"({rows}, {c}) {str(dtype)[6:]}", LAYERNORM_FWD,
-        lambda x, w, b, wc, bc: LAYERNORM_FWD(x, w, b),
-        lambda x, w, b, wc, bc: LN.layernorm_plain(x, w, b),
-        lambda x, w, b, wc, bc: F.layer_norm(x, (c,), wc, bc, 1e-5),
-        sets, nbytes, 8 * rows * c, f32, dev_name)
-
-
-def sdpa_packed(qkv, heads=12):
-    """(B, L, 3W) packed projection -> the (B, H, L, hd) q, k, v views
-    SDPA takes."""
-    b, length, _ = qkv.shape
-    return qkv.view(b, length, 3, heads, 64).permute(2, 0, 3, 1, 4)
-
-
-def time_qkv_case(rng, b, length, dev_name, dtype=torch.bfloat16):
-    """K2 at (b, length, 2304) in `dtype` beside SDPA on the (B, H, L, hd)
-    views of the packed projection: each backend that takes them is timed,
-    and the fastest is the yardstick, named."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    size = 2 if dtype == torch.bfloat16 else 4
-    nbytes = b * length * 2304 * size + b * length * 768 * size
-    sets = [(_cuda_normal(rng, (b, length, 2304), dtype),)
-            for _ in range(copies_for(nbytes))]
-    libraries = {}
-    for backend in (SDPBackend.FLASH_ATTENTION,
-                    SDPBackend.EFFICIENT_ATTENTION,
-                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
-        def library(x, backend=backend):
-            with sdpa_kernel(backend):
-                return F.scaled_dot_product_attention(*sdpa_packed(x))
-        try:
-            library(*sets[0])
-        except RuntimeError:
-            continue
-        libraries[backend.name] = (rotating_ms(library, sets), library)
-    name = min(libraries, key=lambda k: libraries[k][0])
-    out = time_kernel(
-        f"({b}, {length}, 2304) {str(dtype)[6:]}", ATTENTION_QKV_FWD,
-        lambda x: ATTENTION_QKV_FWD(x, 12),
-        lambda x: ATT.attention_qkv_plain(x, 12), libraries[name][1], sets,
-        nbytes, 4 * b * 12 * length * length * 64, dtype, dev_name)
-    out["library"] = f"F.scaled_dot_product_attention, {name}"
-    out["library_backends_ms"] = {k: v[0] for k, v in libraries.items()}
-    print(f"    library: SDPA on (B, H, L, hd) views, the fastest backend "
-          f"{name}; each backend "
-          f"{ {k: round(v[0], 5) for k, v in libraries.items()} } ms")
-    return out
-
-
-def time_attention_case(rng, bh, length, hd, dtype, dev_name,
-                        fastest=False):
-    """K4 at (bh, length, hd) in `dtype` beside SDPA on 4-D (1, BH, L, hd)
-    views, its backend pinned (f32: memory-efficient; bf16: flash), or,
-    with `fastest`, the fastest backend that takes them."""
-    size = 2 if dtype == torch.bfloat16 else 4
-    nbytes = 4 * bh * length * hd * size
-    sets = [tuple(_cuda_normal(rng, (bh, length, hd), dtype)
-                  for _ in range(3)) for _ in range(copies_for(nbytes))]
-    sdpa, backend = sdpa_4d(*sets[0], fastest=sets if fastest else None)
-    out = time_kernel(
-        f"({bh}, {length}, {hd}) {str(dtype)[6:]}", ATTENTION_FWD,
-        ATTENTION_FWD, ATT.attention_plain, sdpa, sets, nbytes,
-        4 * bh * length * length * hd, dtype, dev_name)
-    out["library"] = f"F.scaled_dot_product_attention, {backend}"
-    print(f"    library: SDPA on (1, BH, L, hd) views, {backend} backend")
-    return out
-
-
-def time_encoder_kernels(dev_name):
-    """(e) K3 at the tower's LayerNorm shape, K2 at clip_b32 and at B/16,
-    K4 at the tiny tower's shape, at B/16 width and at ViT-H/14's; the
-    yardsticks are F.layer_norm and F.scaled_dot_product_attention on 4-D
-    views of the split heads."""
-    out = {}
-    rng = np.random.default_rng(21)
-    bf16, f32 = torch.bfloat16, torch.float32
-    # K3 at the tower's shape (the main path's, bf16), in f32, and at the
-    # tiny tower's width
-    for rows, c, dtype, key in (
-            (CLIP_BATCH * VIEWS * 50, 768, bf16, "layernorm_fwd"),
-            (CLIP_BATCH * VIEWS * 50, 768, f32, "layernorm_fwd_f32"),
-            (4 * VIEWS * 50, 64, bf16, "layernorm_fwd_c64_bf16"),
-            (4 * VIEWS * 50, 64, f32, "layernorm_fwd_c64_f32")):
-        out[key] = time_layernorm_case(rng, rows, c, dtype, dev_name)
-    for b, length, key in ((CLIP_BATCH * VIEWS, 50, "attention_qkv_fwd"),
-                           (CLIP_BATCH * VIEWS, 197, "attention_qkv_fwd_p16")):
-        out[key] = time_qkv_case(rng, b, length, dev_name)
-
-    # K4 at the tiny tower's shape, at B/16 width and at ViT-H/14's widths
-    # (192 views x 16 heads)
-    for bh, length, hd, dtype, key in (
-            (4 * VIEWS * 4, 50, 16, f32, "attention_fwd"),
-            (CLIP_BATCH * VIEWS * 12, 197, 64, bf16, "attention_fwd_p16"),
-            (CLIP_BATCH * VIEWS * 16, 257, 80, bf16, "attention_fwd_h14")):
-        out[key] = time_attention_case(rng, bh, length, hd, dtype, dev_name)
-    out.update(time_long_attention(rng, dev_name))
-    return out
-
-
-def time_long_attention(rng, dev_name):
-    """(e) K2 and K4 where K and V outgrow what shared memory once held (no
-    main path runs them; towers at 448 px would): K2 at QKV_LONG_CASES and
-    K4 at (64, 1025, 80) and, hd above 256, (16, 600, 320), in both types,
-    each beside SDPA's fastest backend."""
-    out = {}
-    for b, length in QKV_LONG_CASES:
-        for dtype in (torch.bfloat16, torch.float32):
-            out[f"attention_qkv_fwd_L{length}_{str(dtype)[6:]}"] = \
-                time_qkv_case(rng, b, length, dev_name, dtype)
-    for bh, length, hd in ((64, 1025, 80), (16, 600, 320)):
-        for dtype in (torch.bfloat16, torch.float32):
-            out[f"attention_fwd_L{length}_hd{hd}_{str(dtype)[6:]}"] = \
-                time_attention_case(rng, bh, length, hd, dtype, dev_name,
-                                    fastest=True)
-    return out
-
-
-def sdpa_4d(q, k, v, fastest=None):
-    """F.scaled_dot_product_attention on (1, BH, L, hd) views of (BH, L, hd)
-    tensors (the fused backends take 4-D inputs only), pinned to the first
-    backend that takes them: flash, memory-efficient, cuDNN, math; or, given
-    `fastest` (the timing's input sets), the fastest of those that take
-    them. Returns (call, backend name)."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    taken = {}
-    for backend in (SDPBackend.FLASH_ATTENTION,
-                    SDPBackend.EFFICIENT_ATTENTION,
-                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
-        def call(q, k, v, backend=backend):
-            with sdpa_kernel(backend):
-                return F.scaled_dot_product_attention(q[None], k[None],
-                                                      v[None])[0]
-        try:
-            got = call(q, k, v)
-        except RuntimeError:
-            continue
-        torch.testing.assert_close(got.float(),
-                                   ATT.attention_plain(q, k, v).float(),
-                                   rtol=0.0, atol=attn_atol(q.dtype, v)
-                                   if q.dtype == torch.bfloat16 else 1e-2)
-        if fastest is None:
-            return call, backend.name
-        taken[backend.name] = (rotating_ms(call, fastest), call)
-    require(taken, "no SDPA backend takes these inputs")
-    name = min(taken, key=lambda n: taken[n][0])
-    print(f"    SDPA backends that take them: "
-          f"{ {n: round(t[0], 5) for n, t in taken.items()} } ms")
-    return taken[name][1], f"{name}, the fastest"
-
-
-def time_encode_and_pipeline(ex, model, cfg, dev_name):
-    """(e) encode views/s (clip_b32 bf16 forward of 192 uint8 views already
-    on the card) and pipeline views/s with the buffer full, host clock
-    around synchronised runs of 10."""
-    images, steps, heads, state = pipeline_inputs(cfg, PIPE_PANOS,
-                                                  torch.bfloat16)
-    for _ in range(3):
-        ex.encode(images)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        ex.encode(images)
-    torch.cuda.synchronize()
-    encode_s = (time.perf_counter() - t0) / 10
-    for depth, pos, heading in steps:          # fill the buffer
-        state = encode_and_pool(model, images, state, depth, pos, heading,
-                                heads["txt"], heads["text_proj"],
-                                heads["grid_proj"], cfg.grid).state
-    torch.cuda.synchronize()
-    depth, pos, heading = steps[-1]
-    t0 = time.perf_counter()
-    for _ in range(10):
-        state = encode_and_pool(model, images, state, depth, pos, heading,
-                                heads["txt"], heads["text_proj"],
-                                heads["grid_proj"], cfg.grid).state
-    torch.cuda.synchronize()
-    pipe_s = (time.perf_counter() - t0) / 10
-    views = PIPE_PANOS * VIEWS
-    res = {"encode_ms_per_192_views": encode_s * 1e3,
-           "encode_views_per_s": views / encode_s,
-           "pipeline_ms_per_iteration": pipe_s * 1e3,
-           "pipeline_views_per_s": views / pipe_s}
-    print(f"  encode, clip_b32 bf16, {views} views: {encode_s * 1e3:.3f} ms "
-          f"({views / encode_s:.1f} views/s); pipeline, full buffer: "
-          f"{pipe_s * 1e3:.3f} ms per iteration ({views / pipe_s:.1f} "
-          f"views/s) [{dev_name}]")
-    return res
-
-
 # ------------------------------------------------------ (d) the VLN-CE path
-class StepClock:
-    """SectionTimer's interface, keeping every duration: a rollout's
-    sections come once per step, so index t is step t."""
-
-    def __init__(self):
-        self.times = {}
-
-    @contextlib.contextmanager
-    def section(self, name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.times.setdefault(name, []).append(time.perf_counter() - t0)
-
-    def agent_step_ms(self):
-        """The agent's own ms per step: every section but the env's."""
-        names = [k for k in self.times if k != "env_step"]
-        steps = min(len(self.times[k]) for k in names)
-        return [1e3 * sum(self.times[k][t] for k in names)
-                for t in range(steps)]
-
-
 def ce_env(seed, num_envs=CE_ENVS):
     return SyntheticContinuousEnv(num_envs=num_envs, image_size=224,
                                   depth_size=256, seed=seed)
 
 
-def ce_rollout(agent, fused, seed, trace=None, clock=None, steps=CE_STEPS):
+def ce_rollout(agent, fused, seed, trace=None, steps=CE_STEPS):
     """One greedy rollout on a fresh arena; returns (metrics, paths)."""
     agent.fused_rollout = fused
     env = ce_env(seed)
-    m = agent.rollout(env, max_steps=steps, feedback="argmax", trace=trace,
-                      timer=clock)
+    m = agent.rollout(env, max_steps=steps, feedback="argmax", trace=trace)
     return m, [np.asarray(p) for p in env.paths]
 
 
@@ -2854,11 +1850,11 @@ def ce_assembly_walk(agent, seed, steps=CE_STEPS):
     return diffs, gaps, revisits
 
 
-def ce_rollout_checks(report, dev_name):
+def ce_rollout_checks(report):
     """Fresh full-width weights: a greedy rollout through the fused device
     step and one through the host path must act identically; the rollout
     with the plain ops (f32 towers, so that LOGIT_TOL applies) against the
-    kernels; step times of both paths."""
+    kernels."""
     t0 = time.time()
     cfg, agent = build_ce_agent(tiny=False, view_tower=True, seed=CE_SEED,
                                 device="cuda")
@@ -2888,20 +1884,6 @@ def ce_rollout_checks(report, dev_name):
           f"rows left out (a node coincident in f32, ~1e-9 m away in "
           f"f64); logits from each, same carry, max|diff| per step "
           f"{[float(f'{g:.2e}') for g, _ in step_gaps]}")
-
-    # the agent's own step time, warm, both paths
-    step_ms = {}
-    for fused, key in ((True, "fused"), (False, "host_path")):
-        clock = StepClock()
-        torch.cuda.synchronize()
-        ce_rollout(agent, fused, 5, clock=clock)
-        ms = clock.agent_step_ms()
-        step_ms[key] = {"median_ms": float(np.median(ms)), "steps": len(ms),
-                        "ms": ms}
-        print(f"  CE rollout step, {CE_ENVS} envs, {key}: median "
-              f"{np.median(ms):.2f} ms over {len(ms)} steps (the agent's "
-              f"own time on the host clock, env rendering excluded) "
-              f"[{dev_name}]")
 
     # kernels against the plain ops: f32 towers, reproducible reference
     agent32 = type(agent)(cfg, agent.navigator, agent.waypoint,
@@ -2941,15 +1923,14 @@ def ce_rollout_checks(report, dev_name):
         "assembly_revisit_rows": revisits,
         "f32_kernels_vs_plain_logit_max_abs_diff": worst,
         "f32_actions_part_at_step": part, "part_gap": part_gap,
-        "bf16_first_step_rel_err": bf16_err, "step_ms": step_ms}
+        "bf16_first_step_rel_err": bf16_err}
     del agent, agent32
 
 
-def ce_update_checks(report, dev_name):
+def ce_update_checks(report):
     """Fresh full-width weights (CE_GRAD_SEED): one schedule-sampled batch
     of 4 envs x 20 steps recorded, its loss and gradients against the plain
-    ops, three updates (dropout off) with a falling loss; returns
-    (trainer, batch) for phase e."""
+    ops, three updates (dropout off) with a falling loss."""
     cfg, agent = build_ce_agent(tiny=False, view_tower=True,
                                 seed=CE_GRAD_SEED, device="cuda")
     trainer = CETrainer(cfg, agent)
@@ -2995,7 +1976,6 @@ def ce_update_checks(report, dev_name):
         "seed": CE_GRAD_SEED, "loss_kernels": loss_k, "loss_plain": loss_p,
         "worst_grad_diff_vs_plain": worst, "losses": losses,
         "launches": launches}
-    return trainer, batch
 
 
 def tiny_ce_cpu_reference(report):
@@ -3046,70 +2026,20 @@ def tiny_ce_cpu_reference(report):
     report["ce"]["tiny"] = {"logit_max_abs_diff": worst,
                             "k4_launches": out["cuda"]["k4"],
                             "worst_grad_diff": gworst}
-    return out["cuda"]["k4"]
 
 
-def time_ce(trainer, batch, dev_name):
-    """(e) the kernels at the CE shapes (K1, K5a, K5b at the CE buffer; K2
-    and K3 at the two towers' shapes for 4 envs x 12 views; K4 at the tiny
-    CE agent's) and the CE update's time and peak memory."""
-    out = {}
-    g, c, w = pool_case("random", CE_ENVS, torch.float32, seed=8, n=CE_N)
-    c[:, CE_STEPS * 588:] = -1
-    label = (f"B={CE_ENVS} N={CE_N} D=768 f32 ({CE_STEPS * 588} filled, 5% "
-             f"of them invalid)")
-    out["grid_pool_fwd"] = time_pool(g, c, w, "CE " + label, dev_name)
-    out["grid_pool_bwd1"], out["grid_pool_bwd2"] = time_pool_bwd(
-        g, c, w, label, dev_name)
-    del g, c, w
-    rng = np.random.default_rng(22)
-    views = CE_ENVS * VIEWS
-    out["attention_qkv_fwd"] = time_qkv_case(rng, views, 197, dev_name)
-    out["attention_qkv_fwd_grid"] = time_qkv_case(rng, views, 50, dev_name)
-    out["layernorm_fwd"] = time_layernorm_case(rng, views * 197, 768,
-                                               torch.bfloat16, dev_name)
-    out["layernorm_fwd_grid"] = time_layernorm_case(rng, views * 50, 768,
-                                                    torch.bfloat16, dev_name)
-    # K4 at the tiny CE agent's CLIP (2 envs x 12 views x 4 heads, hd 16)
-    out["attention_fwd"] = time_attention_case(rng, 2 * VIEWS * 4, 50, 16,
-                                               torch.float32, dev_name)
-    out["update"] = time_train_update(
-        trainer.state, lambda state, batch, seed: trainer.update(
-            batch, seed, dropout=False), batch, dev_name,
-        what="CE update, r2r_ce_config() f32, dropout off")
-    return out
-
-
-def ce_phases(report, dev_name, phase_s):
-    """(d) the VLN-CE path; returns what phase e times it with."""
+def ce_phases(report, phase_s):
+    """(d) the VLN-CE path."""
     t_phase = time.time()
     print("(d) main path: VLN-CE at r2r_ce_config() width (run_ce --full "
           "--view_tower), fused vs host path, kernels vs plain ops, "
           "updates, the tiny agent card vs CPU")
     ce_cli_path(report)
-    ce_rollout_checks(report, dev_name)
-    trainer, batch = ce_update_checks(report, dev_name)
-    k4 = tiny_ce_cpu_reference(report)
+    ce_rollout_checks(report)
+    ce_update_checks(report)
+    tiny_ce_cpu_reference(report)
     phase_s["d_ce"] = time.time() - t_phase
     print(f"    phase (d), VLN-CE: {phase_s['d_ce']:.1f}s")
-    return trainer, batch, k4
-
-
-def ce_kernel_entries(report, timing, k4):
-    """The kernels line's `ce` entries: launches on the run_ce path (K4:
-    the tiny CE agent's) and the times at the CE shapes."""
-    fields = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-              "library_ms")
-    launches = report["ce"]["cli"]["launches"]
-    for name in CE_PATH_KERNELS:
-        report[name]["ce"] = {"launches": launches[name],
-                              **{f: timing[name][f] for f in fields}}
-    for name in ("attention_qkv_fwd", "layernorm_fwd"):
-        report[name]["ce"]["grid_tower"] = {
-            f: timing[f"{name}_grid"][f] for f in fields}
-    report["attention_fwd"]["ce"] = {
-        "launches": k4, "path": "the tiny CE agent's rollout (hd 16)",
-        **{f: timing["attention_fwd"][f] for f in fields}}
 
 
 # ------------------------------------- (d) int8 serving, the parallel layer
@@ -3234,8 +2164,7 @@ def int8_serving_path(report, cfg, rows, texts, fused_f32):
     int8_matmuls serves the main path's 6 requests x 18 steps on the same
     seed-0 weights; its logits against the f32 engine's (the JAX test's
     gates), its first step against the same int8 step on the CPU, and the
-    --int8 bundle against it. Returns (launches, the int8 engine, the
-    bundle's), which phase e times beside the f32 engines."""
+    --int8 bundle against it."""
     cfg8 = int8_cfg(cfg)
     model8 = init_navigator(cfg8.model, seed=0, device="cuda")
     n_steps = FIRST_STEPS + LATER_STEPS
@@ -3297,7 +2226,7 @@ def int8_serving_path(report, cfg, rows, texts, fused_f32):
                                     "--out_dir", str(out_dir)])
     export_s = time.time() - t0
     require(manifest["int8"] is True, "the --int8 manifest says int8 false")
-    served8_logits, served8 = run_engine(
+    served8_logits, _ = run_engine(
         None, cfg8, rows, texts, make=lambda: NavServingEngine.from_bundle(
             str(out_dir), cfg8, dict(model8.state_dict()), SERVE_SLOTS))
     bundle_diff, bundle_bits = compare_logits(served8_logits, fused8,
@@ -3314,7 +2243,6 @@ def int8_serving_path(report, cfg, rows, texts, fused_f32):
         "cpu_one_ulp_over_spread_r2r": r2r_ulp, "export_s": export_s,
         "bundle_vs_create_max_abs_diff": bundle_diff,
         "bundle_vs_create_equal_bits": bundle_bits}
-    return launches, eng8, served8
 
 
 def int8_clip_path(report, dev_name):
@@ -3361,7 +2289,6 @@ def int8_clip_path(report, dev_name):
           f"{res['bf16_views_per_s']:.1f} views/s, host clock over 10 "
           f"[{dev_name}]")
     report["int8_clip"] = res
-    return launches
 
 
 def int8_cfg_clip():
@@ -3561,7 +2488,6 @@ def mesh_world1_path(report):
     out["run_ce"] = {"loss": l1, "plain_loss": l0, "eval": m1}
     out["launches"] = total
     report["mesh_world1"] = out
-    return total
 
 
 def dp_config():
@@ -3669,13 +2595,12 @@ def two_rank_dp_path(report):
           f"process; {wall:.1f}s with the ranks' start")
     report["two_rank_dp"] = {"ranks": ranks, "one_process": want,
                              "one_process_update_s": one_s, "wall_s": wall}
-    return ranks
 
 
 # ------------------------------------------------- (f) the entry points
-# phase (c)'s K5 tolerances, relative to each gradient's max: K5a's d_fts
-# (one product per element) and K5b's d_weights (S summed in another order
-# than the plain version's)
+# the K5 tolerances of tests/test_torch_cuda.py, relative to each gradient's
+# max: K5a's d_fts (one product per element) and K5b's d_weights (S summed
+# in another order than the plain version's)
 POOL_BWD_DG_TOL, POOL_BWD_DW_TOL = 1e-5, 1e-4
 ENTRY_UPDATES = 3                 # bench_train_update's timed updates here
 ENTRY_CE_ROUNDS, ENTRY_CE_STEPS = 2, 6
@@ -3856,11 +2781,11 @@ def int8_mesh_bundle(report):
                                            "export_s": export_s}
 
 
-def entry_points_phase(report, dev_name, pipeline_views_per_s=None):
+def entry_points_phase(report, dev_name):
     """(f) each entry point of the port on the card at full width through
     its module function, with the launch counts set to 0 before it and
     read after it; then the encoder kernels' ops and int8 serving over a
-    mesh. Returns the launches of each entry point."""
+    mesh."""
     from gridmm_tpu_torch import entry as entry_mod
     from gridmm_tpu_torch.cli import bench as bench_mod
     from gridmm_tpu_torch.cli import bench_ce_step as bench_ce_mod
@@ -3881,10 +2806,6 @@ def entry_points_phase(report, dev_name, pipeline_views_per_s=None):
             and la["layernorm_fwd"] == 26 * fills,
             f"bench: launches {la} in {fills} iterations")
     report["entry_points"]["bench"]["record"] = rec
-    if pipeline_views_per_s:
-        print(f"  bench {rec['value']:.1f} views/s against phase (e)'s "
-              f"pipeline {pipeline_views_per_s:.1f} (ratio "
-              f"{rec['value'] / pipeline_views_per_s:.3f})")
 
     lat, la = entry_point_run(report, "bench_latency", lambda: latency_mod.run(
         steps=ENTRY_LATENCY_STEPS), dev_name)
@@ -3970,8 +2891,12 @@ def entry_points_phase(report, dev_name, pipeline_views_per_s=None):
         t0 = time.time()
         check(report)
         print(f"    {check.__name__}: {time.time() - t0:.1f}s")
-    return {k: v["launches"] for k, v in report["entry_points"].items()
-            if isinstance(v, dict) and "launches" in v}
+
+
+def write_report(report, name):
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / name).write_text(json.dumps(report, indent=1, default=str))
 
 
 def main(argv=None) -> int:
@@ -3995,9 +2920,6 @@ def main(argv=None) -> int:
     print(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
     report = {"card": dev_name}
-    for k in KERNELS:
-        report[k.name] = {"name": k.name, "route": "cuda",
-                          "source": k.source, "replaces": k.replaces}
 
     # (b) build
     t0 = time.time()
@@ -4011,19 +2933,11 @@ def main(argv=None) -> int:
                 print(f"    {name}: {line.strip()}")
     report["build_s"] = build_s
     phase_s = {"b": build_s}
+    report["phase_s"] = phase_s
     if ce_only:
-        trainer, batch, k4 = ce_phases(report, dev_name, phase_s)
-        print("(e) times, VLN-CE")
-        timing = time_ce(trainer, batch, dev_name)
-        ce_kernel_entries(report, timing, k4)
-        report["ce"]["timing"] = timing
-        out_dir = ROOT / "chiprun_out"
-        out_dir.mkdir(exist_ok=True)
-        (out_dir / "chip_smoke_ce_report.json").write_text(
-            json.dumps(report, indent=1))
+        ce_phases(report, phase_s)
+        write_report(report, "chip_smoke_ce_report.json")
         print(f"card: {dev_name}")
-        print(json.dumps({"ce": {k.name: report[k.name]["ce"]
-                                 for k in KERNELS}}))
         return 0
     if entry_only:
         t_phase = time.time()
@@ -4031,236 +2945,76 @@ def main(argv=None) -> int:
         entry_points_phase(report, dev_name)
         phase_s["f"] = time.time() - t_phase
         print(f"    phase (f): {phase_s['f']:.1f}s")
-        out_dir = ROOT / "chiprun_out"
-        out_dir.mkdir(exist_ok=True)
-        (out_dir / "chip_smoke_entry_report.json").write_text(
-            json.dumps(report, indent=1, default=str))
+        write_report(report, "chip_smoke_entry_report.json")
         print(f"card: {dev_name}")
         return 0
-
-    # (c) kernels vs plain versions
-    t_phase = time.time()
-    print("(c) kernels against their plain versions")
-    check_pool_kernel(report)
-    check_layernorm_kernel(report)
-    check_attention_kernels(report)
-    check_pool_bwd_kernels(report)
-    check_pool_any_shape(report)
-
-    phase_s["c"] = time.time() - t_phase
-    print(f"    phase (c): {phase_s['c']:.1f}s")
 
     # (d) main paths
     t_phase = time.time()
     print("(d) main path: serving engine, r2r_config() width")
-    eng, cfg, rows, texts, fused_f32 = main_path(report)
+    cfg, rows, texts, fused_f32 = main_path(report)
     report["tiny_cpu_vs_card_max_abs_diff"] = tiny_cpu_reference()
     print("(d) main path: CLIP extractor and encode_and_pool, clip_b32() "
           "width")
-    ex = extractor_path(report)
-    clip_model, pipe_cfg = pipeline_path(report)
-    # K4's launches: the tiny tower's and the ViT-H/14-width tower's, each
-    # counted from 0 over its own run
+    extractor_path(report)
+    pipeline_path(report)
     print("(d) per-head attention paths: the --tiny tower and a tower at "
           "ViT-H/14 widths")
-    report["attention_fwd"]["launches"] = (tiny_tower_path(report)
-                                           + vit_h14_tower_path(report))
+    tiny_tower_path(report)
+    vit_h14_tower_path(report)
     print("(d) main path: training, r2r_config() width")
-    train_state, train_step, train_batch, train_cfg = training_path(report)
+    training_path(report)
     report["tiny_update_cpu_vs_card_worst_grad_ratio"] = \
         tiny_update_cpu_reference()
-    for name in ("attention_qkv_fwd", "layernorm_fwd"):
-        report[name]["launches"] = report["pipeline"]["launches"][name]
     phase_s["d_before_real_data"] = time.time() - t_phase
     t_phase = time.time()
     print("(d) main path: real data (main_nav --world r2r on gmmstore "
           "files) and the serving bundle, r2r_config() width")
     real_data_path(report)
-    live, eager, served = bundle_path(report, cfg, rows, texts, dev_name)
+    bundle_path(report, cfg, rows, texts, dev_name)
     phase_s["d_real_data_and_bundle"] = time.time() - t_phase
     t_phase = time.time()
     print("(d) main path: pretraining at r2r width (cli/pretrain.main, "
           "12,416-point buffer) and released-checkpoint import")
-    pre_state, pre_batch, pre_cfg = pretraining_path(report)
+    pretraining_path(report)
     checkpoint_import_path(report, cfg, rows, texts, dev_name)
     phase_s["d_pretrain_and_import"] = time.time() - t_phase
     print(f"    phase (d): {phase_s['d_before_real_data']:.1f}s, then "
           f"{phase_s['d_real_data_and_bundle']:.1f}s for real data and the "
           f"bundle, {phase_s['d_pretrain_and_import']:.1f}s for "
           f"pretraining and the import")
-    ce_trainer, ce_batch, ce_k4 = ce_phases(report, dev_name, phase_s)
+    ce_phases(report, phase_s)
     t_phase = time.time()
     print("(d) int8 serving at r2r_config() width and the int8 clip_b32 "
           "tower")
-    int8_launches, eng8, served8 = int8_serving_path(report, cfg, rows,
-                                                     texts, fused_f32)
-    clip8_launches = int8_clip_path(report, dev_name)
+    int8_serving_path(report, cfg, rows, texts, fused_f32)
+    int8_clip_path(report, dev_name)
     phase_s["d_int8"] = time.time() - t_phase
     t_phase = time.time()
     print("(d) the parallel layer: a mesh of one rank over NCCL, then two "
           "ranks on the one card over gloo")
-    mesh_launches = mesh_world1_path(report)
-    dp_ranks = two_rank_dp_path(report)
+    mesh_world1_path(report)
+    two_rank_dp_path(report)
     phase_s["d_parallel"] = time.time() - t_phase
     print(f"    int8 {phase_s['d_int8']:.1f}s, parallel layer "
           f"{phase_s['d_parallel']:.1f}s")
-    report["grid_pool_fwd"]["int8"] = {
-        "launches": int8_launches["grid_pool_fwd"],
-        "path": "int8 serving engine, 6 requests x 18 steps (times: the "
-                "serving shape's)"}
-    for name in ("attention_qkv_fwd", "layernorm_fwd"):
-        report[name]["int8"] = {
-            "launches": clip8_launches[name],
-            "path": "one int8 clip_b32 forward of 192 views (times: the "
-                    "encode shape's)"}
-    for name in ("grid_pool_fwd", "attention_qkv_fwd", "layernorm_fwd",
-                 "grid_pool_bwd1", "grid_pool_bwd2"):
-        report[name]["mesh"] = {
-            "launches": mesh_launches[name],
-            "path": "train_navigator, pretrain and run_ce on a mesh of one "
-                    "rank (NCCL)",
-            "two_ranks_gloo": [r["launches"][name] for r in dp_ranks]}
 
-    # (e) times
-    t_phase = time.time()
-
-    print("(e) times")
-    last = rows[2][-1]
-    ps = eng._carry.point_state
-    pos = torch.as_tensor(np.concatenate([last.pos_xy] * SERVE_SLOTS),
-                          device="cuda")
-    head = torch.as_tensor(np.concatenate([last.heading] * SERVE_SLOTS),
-                           device="cuda")
-    cells, _, _ = G.egocentric_grid_assignment(ps, pos, head, cfg.grid)
-    timing = {"main_path_B4_f32": time_pool(
-        ps.features, cells, ps.weights, "main path B=4 N=8832 D=768 f32",
-        dev_name)}
-    # the serving shape again with the points spread evenly over the cells,
-    # and with 90% of one row in one cell: a block streams a cell, so the
-    # spread sets the kernel's time
-    for kind, key in (("random", "serving_B4_f32_uniform"),
-                      ("skew", "serving_B4_f32_skew")):
-        g, c, w = pool_case(kind, SERVE_SLOTS, torch.float32, seed=5)
-        timing[key] = time_pool(
-            g, c, w, f"B={SERVE_SLOTS} N=8832 D=768 f32 ({kind} cells)",
-            dev_name)
-        del g, c, w
-    # rows longer than one block of the forward once listed
-    g, c, w = random_pool_case(2, 40000, POOL_D, torch.float32, seed=40)
-    timing["long_B2_N40000_f32"] = time_pool(
-        g, c, w, "B=2 N=40000 D=768 f32 (ids in [-1, 198))", dev_name)
-    del g, c, w
-    # the pipeline's shape: 16 panoramas, full bf16 buffer
-    g, c, w = pool_case("random", PIPE_PANOS, torch.bfloat16, seed=5)
-    timing["pipeline_B16_bf16"] = time_pool(
-        g, c, w, f"pipeline B={PIPE_PANOS} N=8832 D=768 bf16 (5% invalid)",
-        dev_name)
-    del g, c, w
-    timing.update(time_encoder_kernels(dev_name))
-    # the training shape, forward and backward: the stacked buffer of a full
-    # batch
-    g, c, w = pool_case("random", train_batch.steps.target.shape[1],
-                        torch.float32, seed=6, n=TRAIN_STEPS * 588)
-    label = f"B={g.shape[0]} N={g.shape[1]} D=768 f32 (5% invalid)"
-    timing["train_B16_f32"] = time_pool(g, c, w, "train " + label, dev_name)
-    timing["grid_pool_bwd1"], timing["grid_pool_bwd2"] = time_pool_bwd(
-        g, c, w, label, dev_name)
-    del g, c, w
-    timing["train_update"] = time_train_update(train_state, train_step,
-                                               train_batch, dev_name)
-    del train_state, train_step, train_batch
-    # the pretraining buffer, forward and backward: 21 x 588 points filled
-    # of 12,416, 5% of them invalid
-    g, c, w = pool_case("random", PRETRAIN_B, torch.float32, seed=7,
-                        n=PRETRAIN_N)
-    c[:, PRETRAIN_S * 588:] = -1
-    label = (f"B={PRETRAIN_B} N={PRETRAIN_N} D=768 f32 ({PRETRAIN_S * 588} "
-             f"filled, 5% of them invalid)")
-    timing["pretrain_B8_f32"] = time_pool(g, c, w, "pretrain " + label,
-                                          dev_name)
-    timing["pretrain_bwd1"], timing["pretrain_bwd2"] = time_pool_bwd(
-        g, c, w, label, dev_name)
-    del g, c, w
-    timing["pretrain_update"] = time_pretrain_updates(pre_state, pre_cfg,
-                                                      pre_batch, dev_name)
-    del pre_state, pre_batch
-    timing["ce"] = time_ce(ce_trainer, ce_batch, dev_name)
-    del ce_trainer, ce_batch
-    report["timing"] = timing
-    for name, key in (("grid_pool_fwd", "main_path_B4_f32"),
-                      ("layernorm_fwd", "layernorm_fwd"),
-                      ("attention_qkv_fwd", "attention_qkv_fwd"),
-                      ("attention_fwd", "attention_fwd"),
-                      ("grid_pool_bwd1", "grid_pool_bwd1"),
-                      ("grid_pool_bwd2", "grid_pool_bwd2")):
-        for field in ("ms", "plain_ms", "bound_ms", "bound_by",
-                      "library_ms"):
-            report[name][field] = timing[key][field]
-    # K2 and K4 where K and V stream through the ring (no path's shape)
-    for name in ("attention_qkv_fwd", "attention_fwd"):
-        report[name]["long"] = [
-            {f: timing[key][f] for f in ("shape", "ms", "plain_ms",
-                                         "bound_ms", "bound_by",
-                                         "library_ms", "library")}
-            for key in timing if key.startswith(f"{name}_L")]
-    # the pretraining path's launches (its multi-task CLI run) and times
-    for name, key in (("grid_pool_fwd", "pretrain_B8_f32"),
-                      ("grid_pool_bwd1", "pretrain_bwd1"),
-                      ("grid_pool_bwd2", "pretrain_bwd2")):
-        report[name]["pretrain"] = {
-            "launches": report["pretrain"]["cli"]["launches"][name],
-            **{f: timing[key][f] for f in ("shape", "ms", "plain_ms",
-                                           "bound_ms", "bound_by",
-                                           "library_ms")}}
-    ce_kernel_entries(report, timing["ce"], ce_k4)
-    report["throughput"] = time_encode_and_pipeline(ex, clip_model,
-                                                    pipe_cfg, dev_name)
-
-    report["serving_step_ms"] = time_serving(
-        [("CUDA-graphed create", live), ("eager create", eager),
-         ("CUDA-graphed from_bundle", served),
-         ("int8 CUDA-graphed create", eng8),
-         ("int8 CUDA-graphed from_bundle (quantizes in the program)",
-          served8)], cfg, dev_name)
-    print(f"  export of the serving bundle (language + nav_step, r2r "
-          f"width, batch {SERVE_SLOTS}): {report['bundle']['export_s']:.1f}s "
-          f"[{dev_name}]")
-    phase_s["e"] = time.time() - t_phase
-    print(f"    phase (e): {phase_s['e']:.1f}s")
-
-    # (f) the entry points, on the card memory the earlier phases held
-    del live, eager, served, eng8, served8, ex, clip_model, eng
+    # (f) the entry points
     torch.cuda.empty_cache()
     t_phase = time.time()
     print("(f) the entry points: bench, bench_latency, bench_pool_bwd, "
           "bench_train_update, bench_ce_step, drive_episode, "
           "run_synthetic_eval, entry(); the encoder kernels' ops; int8 "
           "over a mesh")
-    entry_launches = entry_points_phase(
-        report, dev_name, report["throughput"]["pipeline_views_per_s"])
+    entry_points_phase(report, dev_name)
     phase_s["f"] = time.time() - t_phase
     print(f"    phase (f): {phase_s['f']:.1f}s")
-    for k in KERNELS:
-        report[k.name]["entry_points"] = {
-            name: n[k.name] for name, n in entry_launches.items()
-            if n[k.name]}
     print("(d, last) a serving step that cannot be captured")
     report["bundle"]["failed_capture"] = check_failed_capture(cfg)
-    report["phase_s"] = phase_s
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke_report.json").write_text(
-        json.dumps(report, indent=1))
+    write_report(report, "chip_smoke_report.json")
 
-    # (g) kernels line, (h) result line
+    # (h) result line
     print(f"card: {dev_name}")
-    print(json.dumps({"kernels": [
-        {key: report[k.name][key] for key in (
-            "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "pretrain", "ce", "int8", "mesh", "entry_points", "long")
-            if key in report[k.name]}
-        for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -54,13 +54,14 @@ def test_int8_matmuls_not_ported_yet():
 
 
 def test_port_imports_no_jax():
-    """Import every port module (and chip_smoke.py) in a fresh interpreter:
-    no jax, flax, optax or gridmm_tpu module may be loaded."""
+    """Import every port module (and chip_smoke.py and chip_profile.py) in
+    a fresh interpreter: no jax, flax, optax or gridmm_tpu module may be
+    loaded."""
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in (ROOT / "gridmm_tpu_torch").rglob("*.py"))
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m
-            for m in mods] + ["chip_smoke"]
+            for m in mods] + ["chip_smoke", "chip_profile"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

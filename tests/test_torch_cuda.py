@@ -22,22 +22,24 @@ from gridmm_tpu_torch.ops.grid_pool import (cell_max,  # noqa: E402
 B, N, D = 8, 8832, 768
 
 
-def pool_case(kind: str, dtype, seed: int = 0):
-    """Serving-sized pool inputs: random cells with ~5% invalid; "edges"
-    adds an all-invalid batch row, a one-point cell and empty cells; "skew"
-    a row where cell 17 holds 90% of the points, and an all-invalid row."""
+def pool_case(kind: str, dtype, seed: int = 0, b: int = B, n: int = N,
+              d: int = D):
+    """Pool inputs, serving-sized by default: random cells with ~5% invalid;
+    "edges" adds an all-invalid batch row, a one-point cell and empty cells;
+    "skew" a row where cell 17 holds 90% of the points, and an all-invalid
+    row."""
     rng = np.random.default_rng(seed)
-    g = rng.standard_normal((B, N, D)).astype(np.float32)
-    cells = rng.integers(0, 196, size=(B, N)).astype(np.int32)
-    cells[rng.random((B, N)) < 0.05] = -1
-    w = (rng.standard_normal((B, N)) * 3.0).astype(np.float32)
+    g = rng.standard_normal((b, n, d)).astype(np.float32)
+    cells = rng.integers(0, 196, size=(b, n)).astype(np.int32)
+    cells[rng.random((b, n)) < 0.05] = -1
+    w = (rng.standard_normal((b, n)) * 3.0).astype(np.float32)
     if kind == "edges":
         cells[1] = -1                       # all-invalid batch row
         cells[2][cells[2] == 7] = 8         # cell 7: exactly one point
         cells[2, 100] = 7
         cells[3][cells[3] < 50] = 60        # cells 0..49 empty
     if kind == "skew":
-        cells[0][rng.random(N) < 0.9] = 17  # one cell holds 90% of the row
+        cells[0][rng.random(n) < 0.9] = 17  # one cell holds 90% of the row
         cells[1] = -1
     dev = "cuda"
     return (torch.from_numpy(g).to(dev, dtype), torch.from_numpy(cells).to(dev),
@@ -80,15 +82,17 @@ def _assert_pool_matches_plain(got, g, cells, w, num_cells=196):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["random", "edges", "skew"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_grid_pool_kernel_matches_plain(kind, dtype):
+@pytest.mark.parametrize("b", [B, 4])
+def test_grid_pool_kernel_matches_plain(b, kind, dtype):
     """mask exact; pooled within 1e-5 x max|pooled| (f32) or one bf16 ulp of
     the largest input (bf16: 2^-8 x max|g|); denominator within 1e-5
     relative; the cell max equal to `cell_max`, -inf for empty cells. The
-    sums run in another order than the plain version's, hence not 0."""
+    sums run in another order than the plain version's, hence not 0. B = 8
+    and the serving engine's 4 slots."""
     _require_card()
     from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_fwd
 
-    g, cells, w = pool_case(kind, getattr(torch, dtype))
+    g, cells, w = pool_case(kind, getattr(torch, dtype), b=b)
     got_p, got_m, got_d, got_x = grid_pool_fwd(g, cells, w)
     want_p, want_m, want_d = grid_scatter_pool_raw(g, cells, w)
     torch.cuda.synchronize()
@@ -111,13 +115,16 @@ def test_grid_pool_kernel_matches_plain(kind, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_grid_pool_kernel_same_bits_on_every_run(dtype):
+@pytest.mark.parametrize("kind", ["skew", "random", "edges"])
+@pytest.mark.parametrize("b", [B, 4])
+def test_grid_pool_kernel_same_bits_on_every_run(b, kind, dtype):
     """No atomics and a fixed order of every sum: two runs on the same
-    inputs give equal bits in all four outputs."""
+    inputs give equal bits in all four outputs, on each kind of buffer of
+    test_grid_pool_kernel_matches_plain."""
     _require_card()
     from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_fwd
 
-    g, cells, w = pool_case("skew", getattr(torch, dtype), seed=4)
+    g, cells, w = pool_case(kind, getattr(torch, dtype), seed=4, b=b)
     first = grid_pool_fwd(g, cells, w)
     second = grid_pool_fwd(g, cells, w)
     torch.cuda.synchronize()
@@ -221,11 +228,17 @@ def test_grid_pool_kernel_counts_launches_and_rejects_bad_input():
 
 
 # ------------------------------------------------ K5a/K5b pool backward
-def _bwd_case(kind, dtype, b, n, seed=0):
-    """pool_case at (b, n) with a cotangent and the forward's residuals."""
-    g, cells, w = pool_case(kind, dtype, seed)
+def _bwd_case(kind, dtype, b, n, seed=0, d=D, filled=None):
+    """pool_case at (b, n, d) with a cotangent and the forward's residuals:
+    a slice of the serving-sized case where (b, n, d) fits in it; the
+    points past `filled` invalid, as in a buffer not yet full."""
+    fits = b <= B and n <= N and d == D
+    g, cells, w = pool_case(kind, dtype, seed,
+                            *((B, N, D) if fits else (b, n, d)))
     g, cells, w = (g[:b, :n].contiguous(), cells[:b, :n].contiguous(),
                    w[:b, :n].contiguous())
+    if filled is not None:
+        cells[:, filled:] = -1
     rng = np.random.default_rng(seed + 1)
     cot = torch.from_numpy(rng.standard_normal((b, 196, g.shape[-1])).astype(
         np.float32)).cuda()
@@ -236,7 +249,9 @@ def _bwd_case(kind, dtype, b, n, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["random", "edges"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,n", [(4, 8820), (8, 8832), (4, 8821), (3, 1001)])
+@pytest.mark.parametrize("b,n", [(4, 8820), (8, 8832), (4, 8821), (3, 1001),
+                                 (4, 8832), (16, 8820), (16, 8832),
+                                 (16, 8821)])
 def test_grid_pool_bwd_kernels_match_plain(kind, dtype, b, n):
     """dg within 1e-5 x max|dg| (f32: one product each side) or one bf16 ulp
     of its magnitude (bf16: both round the same f32 product); s within 1e-5
@@ -244,7 +259,7 @@ def test_grid_pool_bwd_kernels_match_plain(kind, dtype, b, n):
     order than the plain version's). N = 8820 is the stacked buffer's
     length, not a multiple of 512; N = 8821 and 1001 are odd, so every
     other row starts off an 8-byte boundary and pass 2 takes a scalar head
-    and tail."""
+    and tail. B = 16 is the train update's batch."""
     _require_card()
     from gridmm_tpu_torch.ops.cuda.grid_pool import (GRID_POOL_BWD1,
                                                      GRID_POOL_BWD2,
@@ -321,15 +336,24 @@ def test_grid_pool_bwd_kernels_any_row_length_and_batch(b, n, d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_grid_pool_bwd_kernels_same_bits_on_every_run(dtype):
+@pytest.mark.parametrize("b,n,d", [(8, 8820, 768), (4, 8832, 768),
+                                   (16, 8820, 768), (8, 12416, 768),
+                                   (4, 11776, 768), (2, 40000, 768),
+                                   (65537, 4, 8)])
+def test_grid_pool_bwd_kernels_same_bits_on_every_run(b, n, d, dtype):
     """S is summed in an order fixed by the shape (no atomics): two calls
     on the same inputs give equal bits in d_fts, d_weights, s and S, at
-    the train shape."""
+    the main paths' shapes (serving's 4 x 8832, the train update's
+    16 x 8820, pretraining's 8 x 12,416 with 12,348 filled, VLN-CE's
+    4 x 11,776 with 11,760 filled: an all-invalid tail) and at
+    test_grid_pool_bwd_kernels_any_row_length_and_batch's."""
     _require_card()
     from gridmm_tpu_torch.ops.cuda.grid_pool import grid_pool_bwd
 
+    filled = {(8, 12416): 21 * 588, (4, 11776): 20 * 588}.get((b, n))
     g, cells, w, cmax, denom, cot = _bwd_case("random", getattr(torch, dtype),
-                                              8, 8820, seed=7)
+                                              b, n, seed=7, d=d,
+                                              filled=filled)
     first = grid_pool_bwd(g, cells, w, cmax, denom, cot)
     second = grid_pool_bwd(g, cells, w, cmax, denom, cot)
     torch.cuda.synchronize()
@@ -503,7 +527,8 @@ def _attn_tol(dtype, v):
                                        (4, 64, 2), (2, 65, 12), (1, 400, 1),
                                        (3, 129, 2), (2, 193, 3),
                                        (4, 1025, 12), (2, 2048, 12),
-                                       (1, 5000, 2)])
+                                       (1, 5000, 2), (8, 1, 12), (8, 17, 12),
+                                       (8, 64, 12)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_qkv_kernel_matches_plain(b, l, heads, dtype):
     """bf16 runs on the tensor cores, f32 on the CUDA cores; L = 1, 17, 64
@@ -563,16 +588,28 @@ def test_attention_kernel_matches_plain(hd, l, dtype):
     torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dt, v))
 
 
+# (slices, L, hd) of K4 at other slice counts than ATTN_CASES's 24: more
+# slices than blocks in flight; every padded width at the tiles' edges and
+# ViT-H/14's (257, 80) on 768 slices; the ring and the wide kernels on 64
+# and 16 slices
+SLICE_CASES = ([(3000, 17, 20), (3000, 50, 64), (1000, 197, 200),
+                (600, 400, 80), (200, 150, 320)]
+               + [(768, l, hd) for hd in (1, 16, 20, 48, 64, 80, 128, 200, 256)
+                  for l in (1, 17, 50, 197)] + [(768, 257, 80)]
+               + [(64, 1025, 80), (64, 1025, 1), (64, 700, 256),
+                  (16, 600, 320), (16, 17, 320), (16, 60, 1024)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,l,hd", [(3000, 17, 20), (3000, 50, 64),
-                                     (1000, 197, 200), (600, 400, 80),
-                                     (200, 150, 320)])
+@pytest.mark.parametrize("bh,l,hd", SLICE_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernel_many_slices(bh, l, hd, dtype):
-    """More slices than blocks in flight: a bf16 block walks several work
-    items (with the next one's K and V staged behind at L = 17 and 50, and
-    streamed through its ring at L = 400), an f32 block several slices at
-    L = 17; the wide kernels many (slice, share, query rows) items."""
+    """Where the persistent grid holds fewer blocks than there are work
+    items, a bf16 block walks several (with the next one's K and V staged
+    behind at L = 17 and 50, and streamed through its ring at L = 400), an
+    f32 block several slices at L = 17; the wide kernels many (slice,
+    share, query rows) items. The other slice counts of SLICE_CASES change
+    how many items each block of the grid walks."""
     _require_card()
     from gridmm_tpu_torch.ops.attention import attention_plain
     from gridmm_tpu_torch.ops.cuda.attention import ATTENTION_FWD
