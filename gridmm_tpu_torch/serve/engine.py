@@ -19,10 +19,19 @@ a free row never contaminates an active one). All device work runs under
 
 The engine runs the live navigator (`create`) or a bundle of exported
 programs (`from_bundle`, utils/export.py). Its text buffer, carry and step
-inputs are static buffers: `step()` copies each input field into its buffer
-(one pinned host-to-device copy a field on the card) and the step's new
-carry back into the carry's. On a CUDA device the step is captured once in
-a `torch.cuda.CUDAGraph` when the engine is made and replayed by every
+inputs are static buffers: `step()` writes each input field's rows into its
+buffer and the step's new carry back into the carry's. The rows of a field
+that outweighs one thread's share of the step's bytes (the patch features)
+are written in parallel, one task a row on the engine's threads, one for
+each CPU the process may run on; meanwhile the calling thread writes every
+other field by one concatenation. On the card the rows go through pinned
+host buffers and up on a copy stream of the engine's own, each row of a
+split field as soon as it is written, so the upload overlaps the writing
+of the next rows and whatever the compute stream runs meanwhile (the
+admission's kernels). The compute stream waits on the copies' event before
+the step runs; the next step's copies wait on the step's event before they
+overwrite its inputs. On a CUDA device the step is captured once in a
+`torch.cuda.CUDAGraph` when the engine is made and replayed by every
 `step()`: the port's counterpart of the JAX engine's single jitted dispatch.
 The admission is graphed too: `_admit_rows(n)` is captured beside the step
 for every row count n an admission can encode (1..B where it encodes only
@@ -35,14 +44,18 @@ step and `_admit_rows(n)` run eagerly over the same buffers.
 Under a torch.profiler the admission and the step record the spans and
 counters of utils/logging.span (`serve.admit`, `serve.step` with its
 `assemble` and `replay`); the admission's and the step's carry the ids of
-the requests they served, and the admission counts its calls and the ones
-that replayed a graph (`serve.admit.calls`, `serve.admit.replays`).
+the requests they served, the admission counts its calls and the ones
+that replayed a graph (`serve.admit.calls`, `serve.admit.replays`), and
+the step the bytes of its inputs and those of them that went up on the
+copy stream (`serve.step.h2d_bytes`, `serve.step.h2d_streamed_bytes`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor, wait
 from functools import partial
 from typing import Callable, Dict, List, Optional
 
@@ -78,6 +91,14 @@ def _kernel_launches() -> Dict[str, int]:
     from gridmm_tpu_torch.ops.cuda.grid_pool import GRID_POOL_FWD
 
     return {GRID_POOL_FWD.name: GRID_POOL_FWD.launches}
+
+
+def _host_threads() -> int:
+    """The CPUs this process may run on."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # a platform without affinity masks
+        return os.cpu_count() or 1
 
 
 def _end_generator_capture(device) -> None:
@@ -179,11 +200,36 @@ class NavServingEngine:
             self._admit_host = tuple(
                 torch.zeros_like(a, device="cpu", pin_memory=True)
                 for a in self._admit_in) if on_card else self._admit_in
+        # a copy: on the CPU `a[:1]` is row 0 of the step's buffer
         self._zero_row = StepInputs(*(
-            a[:1].cpu().numpy() for a in self._x))
-        # what a step's copies move (on the CPU the concatenations write
-        # the step's buffers themselves)
+            a[:1].cpu().numpy().copy() for a in self._x))
+        # what a step's copies move (on the CPU the host writes fill the
+        # step's buffers themselves)
         self._h2d_bytes = sum(a.nbytes for a in self._x_host)
+        # (field, its host buffer, its buffer, and where the threads write
+        # it row by row each slot's row of the host buffer as an array and
+        # of both buffers, else None): a field is split where it outweighs
+        # one thread's share of the step's bytes; a smaller one costs less
+        # whole, on the calling thread, while the threads write
+        threads = _host_threads()
+        self._fields = [
+            (f, host, buf,
+             [(host[s:s + 1].numpy(), host[s:s + 1], buf[s:s + 1])
+              for s in range(batch)]
+             if host.nbytes * threads > self._h2d_bytes else None)
+            for f, host, buf in zip(StepInputs._fields, self._x_host,
+                                    self._x)]
+        self._row_writers = ThreadPoolExecutor(
+            threads, thread_name_prefix="serve-rows")
+        # the stream the inputs go up on, and the event after the last
+        # step's reads of its input buffers, which the copies wait on
+        self._copy_stream: Optional[torch.cuda.Stream] = None
+        self._replayed: Optional[torch.cuda.Event] = None
+        if on_card:
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._replayed = torch.cuda.Event()
+            # after the buffers' zero fill
+            self._replayed.record(torch.cuda.current_stream(self.device))
         # the last copies out of the pinned buffers, which wait for them
         # before they are written again
         self._copied: Optional[torch.cuda.Event] = None
@@ -433,33 +479,76 @@ class NavServingEngine:
         self._slot_req[slot] = None
 
     # ----------------------------------------------------------------- step
+    def _assemble(self, rows: Dict[int, StepInputs]) -> None:
+        """Write every slot's row (the zero row where `rows` has none) into
+        the step's inputs: into the pinned buffers and up on the copy
+        stream on the card, into the buffers themselves on the CPU. Returns
+        once every row is written; the compute stream then waits on the
+        copies (the `_copied` event)."""
+        copy = self._copy_stream
+        if copy is None:
+            self._write_rows(rows)
+            return
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(copy):
+            copy.wait_event(self._replayed)   # the last step read its inputs
+            self._write_rows(rows)
+            self._copied = torch.cuda.Event()
+            self._copied.record(copy)
+        compute.wait_event(self._copied)
+
+    def _write_rows(self, rows: Dict[int, StepInputs]) -> None:
+        """The host writes of `_assemble`, each followed by its upload (on
+        the current stream) where the host buffer is not the step's: the
+        split fields' rows handed to the threads first, the other fields
+        meanwhile, then each row's upload as soon as it is written."""
+        def parts(f):
+            return [np.asarray(getattr(rows[s], f)) if s in rows
+                    else getattr(self._zero_row, f)
+                    for s in range(self.batch)]
+
+        pending = [(self._row_writers.submit(np.copyto, dst, part), h, b)
+                   for f, _, _, by_row in self._fields if by_row is not None
+                   for part, (dst, h, b) in zip(parts(f), by_row)]
+        try:
+            for f, host, buf, by_row in self._fields:
+                if by_row is None:
+                    np.concatenate(parts(f), axis=0, out=host.numpy())
+                    if host is not buf:
+                        buf.copy_(host, non_blocking=True)
+            for written, h, b in pending:
+                written.result()
+                if h is not b:
+                    b.copy_(h, non_blocking=True)
+        finally:
+            # no thread writes a buffer after a failed step returns
+            wait([written for written, _, _ in pending])
+
     def step(self, rows: Dict[int, StepInputs]):
         """One navigation step for every slot. rows: {slot: single-row (b=1)
         StepInputs of host arrays} for (a subset of) active slots; free or
         absent slots run the zero row. Returns NavOutputs, leading dim B,
-        fresh tensors the next step does not overwrite."""
+        fresh tensors the next step does not overwrite. The rows may be
+        overwritten as soon as it returns."""
         with span("serve.step") as sp, torch.inference_mode():
             if sp is not None:
                 sp.attrs["ids"] = list(self._req_slot)
                 sp.count("serve.step.h2d_bytes", self._h2d_bytes)
+                sp.count("serve.step.h2d_streamed_bytes",
+                         0 if self._copy_stream is None else self._h2d_bytes)
             if self._copied is not None:
                 self._copied.synchronize()  # the pinned buffers are free
             with span("serve.step.assemble"):
-                for f, host, buf in zip(StepInputs._fields, self._x_host,
-                                        self._x):
-                    parts = [np.asarray(getattr(rows[s], f)) if s in rows
-                             else getattr(self._zero_row, f)
-                             for s in range(self.batch)]
-                    np.concatenate(parts, axis=0, out=host.numpy())
-                    if host is not buf:
-                        buf.copy_(host, non_blocking=True)
-                if self.device.type == "cuda":
-                    self._copied = torch.cuda.Event()
-                    self._copied.record()
+                self._assemble(rows)
             with span("serve.step.replay", self.device):
                 if self._graph is None:
-                    return self._run_step()
-                self._graph.replay()
+                    out = self._run_step()
+                else:
+                    self._graph.replay()
+            if self._replayed is not None:
+                self._replayed.record(torch.cuda.current_stream(self.device))
+            if self._graph is None:
+                return out
             self.replays += 1
             return NavOutputs(*(None if t is None else t.clone()
                                 for t in self._graph_out))

@@ -937,6 +937,81 @@ def test_graphed_admissions_match_eager_admissions_bit_for_bit(int8):
     assert graphed.replays == 4 and eager.replays == 0
 
 
+def _drive_back_to_back(eng, texts, rows, back_to_back):
+    """Admit every request, then one step a row of `rows` (each request's
+    rows in one set of host arrays that is overwritten as soon as `step`
+    returns, with noise after the last). Back to back: the compute stream
+    spins before each step, so the host enqueues the next step's copies
+    while the last step has yet to run, and no output is read before the
+    end; else each step's outputs are read at once. Returns each step's
+    four logit heads on the host and each step's (`serve.step.h2d_bytes`,
+    `serve.step.h2d_streamed_bytes`), read under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gridmm_tpu_torch.train.step import StepInputs
+    from gridmm_tpu_torch.utils.logging import profiled_stretch, span
+
+    with span("unprofiled") as sp:   # the profiled stretch starts anew
+        assert sp is None
+    for r, (ids, mask) in enumerate(texts):
+        eng.submit(r, ids, mask)
+    eng.admit()
+    slot = eng.active()
+    live = {slot[r]: StepInputs(*(np.array(a) for a in rows[r][0]))
+            for r in slot}
+    noise = np.random.default_rng(11)
+    outs = []
+    with profile(activities=[ProfilerActivity.CPU]):
+        for t in range(len(rows[0])):
+            if back_to_back:
+                torch.cuda._sleep(20_000_000)
+            out = eng.step(live)
+            outs.append(out if back_to_back else
+                        {f: getattr(out, f).cpu() for f in HEADS})
+            for r, s in slot.items():
+                nxt = rows[r][t + 1] if t + 1 < len(rows[r]) else None
+                for i, dst in enumerate(live[s]):
+                    dst[...] = (noise.integers(0, 9, dst.shape)
+                                if nxt is None else nxt[i])
+    torch.cuda.synchronize()
+    if back_to_back:
+        outs = [{f: getattr(o, f).cpu() for f in HEADS} for o in outs]
+    counts = [(sp.counters["serve.step.h2d_bytes"],
+               sp.counters["serve.step.h2d_streamed_bytes"])
+              for sp in profiled_stretch().named("serve.step")]
+    return outs, counts
+
+
+@pytest.mark.cuda
+def test_back_to_back_streamed_steps_match_eager_bit_for_bit():
+    """A graphed 16-slot engine steps three times back to back, its host
+    rows overwritten as each step returns and no output read in between,
+    against a `cuda_graph=False` engine whose outputs are read after each
+    step: every step's four logit heads are equal bit for bit (the pinned
+    buffers are not overwritten before their copies end, the step waits on
+    its copies, the copies wait on the last step); every step's bytes all
+    go up on the copy stream."""
+    _require_card()
+    from gridmm_tpu_torch.config import tiny_config
+    from gridmm_tpu_torch.models.navigator import init_navigator
+    from gridmm_tpu_torch.serve.engine import NavServingEngine
+
+    cfg, slots = tiny_config(), 16
+    model = init_navigator(cfg.model, seed=2, device="cuda")
+    texts, rows = _tiny_engine_inputs(cfg, n_req=slots, steps=3, seed=7)
+    graphed = NavServingEngine.create(model, cfg, slots)
+    eager = NavServingEngine.create(model, cfg, slots, cuda_graph=False)
+    assert any(by_row is not None for *_, by_row in graphed._fields)
+    got, counts = _drive_back_to_back(graphed, texts, rows, True)
+    want, counts_eager = _drive_back_to_back(eager, texts, rows, False)
+    h2d = sum(t.nbytes for t in graphed._x)
+    assert counts == counts_eager == [(h2d, h2d)] * 3
+    for step, (a, b) in enumerate(zip(got, want)):
+        for f in HEADS:
+            assert torch.equal(a[f], b[f]), (step, f)
+    assert graphed.replays == 3 and eager.replays == 0
+
+
 @pytest.mark.cuda
 def test_graphed_engine_admitting_rows_alone_matches_full_batch_admissions():
     """A 16-slot graphed engine whose admissions encode only the rows they

@@ -10,10 +10,18 @@ An admission's language forward: a live f32 engine encodes only the rows it
 admits, an int8 engine and a bundle's engine all B rows; in every kind the
 admitted rows of the text buffer hold the bits of the B-row forward and the
 other rows stay as they were. `_admit_rows(n)`, which the card replays from
-CUDA graphs, runs eagerly here over the same static buffers."""
+CUDA graphs, runs eagerly here over the same static buffers.
+
+A step's assembly writes the largest fields row by row on its threads and
+the others by one concatenation each: its buffers hold what one
+`np.concatenate` a field of the rows (zero rows where a slot has none)
+holds, bit for bit, and the outputs equal those of an engine that
+assembles so."""
 
 import dataclasses
+import os
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +37,8 @@ from gridmm_tpu_torch.ops.cuda.grid_pool import GRID_POOL_FWD  # noqa: E402
 from gridmm_tpu_torch.serve.engine import NavServingEngine as TEngine  # noqa: E402
 from gridmm_tpu_torch.serve.engine import _carry_tensors  # noqa: E402
 from gridmm_tpu_torch.serve.engine import serving_cfg  # noqa: E402
+from gridmm_tpu_torch.serve import engine as engine_mod  # noqa: E402
+from gridmm_tpu_torch.train.step import StepInputs  # noqa: E402
 from gridmm_tpu_torch.utils import export as TX  # noqa: E402
 from torch_parity import (assert_close, jax_navigator, port_config,  # noqa: E402
                           port_navigator, step_rows)
@@ -267,3 +277,98 @@ def test_admissions_never_read_an_earlier_admissions_ids(kind, tmp_path):
         want = lang(torch.from_numpy(want_ids), torch.from_numpy(want_mask))
     assert torch.equal(eng._txt_buf[1], want[src])
     assert torch.equal(eng._mask_buf[1], torch.from_numpy(texts[3][1]))
+
+
+ASM_B = 4
+# the slots a step has rows for, in the order `rows` lists them
+ASSEMBLY_CASES = {"every_slot": [0, 1, 2, 3], "some_slots": [0, 2],
+                  "out_of_slot_order": [3, 1, 0, 2]}
+
+
+class _ConcatEngine(TEngine):
+    """The assembly as one `np.concatenate` a field into the step's buffer,
+    the zero rows from `zero_step_inputs`."""
+
+    def _assemble(self, rows):
+        zero = TX.zero_step_inputs(self.cfg, 1, "cpu")
+        for f, buf in zip(StepInputs._fields, self._x):
+            np.concatenate([np.asarray(getattr(rows[s], f)) if s in rows
+                            else getattr(zero, f).numpy()
+                            for s in range(self.batch)],
+                           axis=0, out=buf.numpy())
+
+
+@pytest.mark.parametrize("case", sorted(ASSEMBLY_CASES))
+def test_step_buffers_hold_the_concatenated_rows_bit_for_bit(case,
+                                                              monkeypatch):
+    """Two steps of a 4-slot engine given rows for every slot, for slots 0
+    and 2 alone (the others take the zero row), or out of slot order: after
+    each, every field of the step's buffers equals `np.concatenate` of the
+    rows bit for bit, and the outputs equal those of an engine that
+    assembles by one concatenation a field. The engine sees 4 CPUs, so
+    that its threads write the patch features row by row."""
+    monkeypatch.setattr(engine_mod, "_host_threads", lambda: 4)
+    jcfg = JC.tiny_config()
+    tcfg = port_config(jcfg)
+    model = init_navigator(tcfg.model, seed=6, device="cpu")
+    eng = TEngine.create(model, tcfg, ASM_B, device="cpu")
+    ref = _ConcatEngine.create(model, tcfg, ASM_B, device="cpu")
+    by_row = {f for f, _, _, rows in eng._fields if rows is not None}
+    assert by_row == {"patch_fts"}
+    rng = np.random.default_rng(8)
+    t = jcfg.shapes.max_txt_len
+    for r in range(ASM_B):
+        text = (rng.integers(1, 1000, size=t).astype(np.int32),
+                np.arange(t) < rng.integers(3, t + 1))
+        for e in (eng, ref):
+            e.submit(r, *text)
+    assert eng.admit() == ref.admit()
+    zero = TX.zero_step_inputs(eng.cfg, 1, "cpu")
+    for step in range(2):
+        rows = {s: step_rows(jcfg, rng, step) for s in ASSEMBLY_CASES[case]}
+        out, want = eng.step(rows), ref.step(rows)
+        for f, buf in zip(StepInputs._fields, eng._x):
+            cat = np.concatenate([np.asarray(getattr(rows[s], f)) if s in rows
+                                  else getattr(zero, f).numpy()
+                                  for s in range(ASM_B)], axis=0)
+            got = buf.numpy()
+            assert got.dtype == cat.dtype, f
+            assert got.tobytes() == cat.tobytes(), f
+        for f in out._fields:
+            a, b = getattr(out, f), getattr(want, f)
+            assert (a is None) == (b is None), f
+            if a is not None:
+                assert torch.equal(a, b), (step, f)
+
+
+def test_row_writers_under_contention(monkeypatch):
+    """More row-writing threads than CPUs and a switch interval of a
+    microsecond: twenty assemblies in a row of a 16-slot engine, each with
+    new rows for a random subset of the slots, leave the step's buffers
+    equal to `np.concatenate` of the rows bit for bit every time."""
+    threads = 4 * (os.cpu_count() or 1)
+    monkeypatch.setattr(engine_mod, "_host_threads", lambda: threads)
+    jcfg = JC.tiny_config()
+    tcfg = port_config(jcfg)
+    eng = TEngine.create(init_navigator(tcfg.model, seed=6, device="cpu"),
+                         tcfg, 16, device="cpu", cuda_graph=False)
+    assert sum(rows is not None for *_, rows in eng._fields) > 1
+    zero = TX.zero_step_inputs(eng.cfg, 1, "cpu")
+    rng = np.random.default_rng(9)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in range(20):
+            slots = rng.permutation(16)[:int(rng.integers(1, 17))]
+            rows = {int(s): step_rows(jcfg, rng, t % 4) for s in slots}
+            start = time.perf_counter()
+            with torch.inference_mode():
+                eng._assemble(rows)
+            assert time.perf_counter() - start < 30
+            for f, buf in zip(StepInputs._fields, eng._x):
+                cat = np.concatenate(
+                    [np.asarray(getattr(rows[s], f)) if s in rows
+                     else getattr(zero, f).numpy() for s in range(16)])
+                assert buf.numpy().tobytes() == cat.tobytes(), (t, f)
+    finally:
+        sys.setswitchinterval(interval)

@@ -155,11 +155,14 @@ def test_serving_spans_counters_and_request_ids():
     assert steps[1].attrs["ids"] == list(range(MORE, SLOTS + MORE))
     h2d = sum(t.nbytes for t in eng._x_host)
     assert h2d == sum(t.nbytes for t in eng._x) > 0
-    assert all(sp.counters == {"serve.step.h2d_bytes": h2d} for sp in steps)
+    assert all(sp.counters == {"serve.step.h2d_bytes": h2d,
+                               "serve.step.h2d_streamed_bytes": 0}
+               for sp in steps)
     assert st.counters == {"serve.admit.rows_admitted": SLOTS + MORE,
                            "serve.admit.rows_encoded": SLOTS + MORE,
                            "serve.admit.calls": 2, "serve.admit.replays": 0,
-                           "serve.step.h2d_bytes": 2 * h2d}
+                           "serve.step.h2d_bytes": 2 * h2d,
+                           "serve.step.h2d_streamed_bytes": 0}
     for child in ("serve.step.assemble", "serve.step.replay"):
         assert [sp.parent for sp in st.named(child)] == steps
     assert all(sp.parent is None for sp in admits + steps)
@@ -215,6 +218,62 @@ def test_admit_graphed_pct_reader():
     _off_span()
     with profile(activities=[ProfilerActivity.CPU]):
         with L.span("serve.step"):
+            pass
+    assert read(traced) is None
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_step_counts_the_bytes_it_streams(device):
+    """`serve.step.h2d_streamed_bytes` beside `serve.step.h2d_bytes` in
+    every `serve.step` span: 0 on the CPU, where the rows are written into
+    the step's buffers, every byte on the card, where they go up on the
+    copy stream; `serve.step.assemble` and `serve.step.replay` keep their
+    names and stay the step's children, in that order."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    eng, batch = _engine(device)
+    _off_span()
+    _profiled(lambda: _serve(eng, batch), device)
+    st = L.profiled_stretch()
+    steps = st.named("serve.step")
+    h2d = sum(t.nbytes for t in eng._x)
+    streamed = 0 if device == "cpu" else h2d
+    assert len(steps) == 2
+    assert all(sp.counters == {"serve.step.h2d_bytes": h2d,
+                               "serve.step.h2d_streamed_bytes": streamed}
+               for sp in steps)
+    assert st.counters["serve.step.h2d_streamed_bytes"] == 2 * streamed
+    for step in steps:
+        children = [sp for sp in st.spans if sp.parent is step]
+        assert [sp.name for sp in children] == ["serve.step.assemble",
+                                                "serve.step.replay"]
+        assert children[0].end <= children[1].start
+
+
+def test_h2d_streamed_pct_reader():
+    """`h2d_streamed_pct.serve` is 100 x streamed bytes / bytes over the
+    profiled stretch, and nothing without a trace, a step, or the counter
+    (a program that streams nothing does not count it)."""
+    read = _reader("h2d_streamed_pct.serve")
+    assert read({}) is None
+    traced = {"trace": {"busy_s": 0.0}}
+    _off_span()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for streamed in (1000, 500):
+            with L.span("serve.step") as sp:
+                sp.count("serve.step.h2d_bytes", 1000)
+                sp.count("serve.step.h2d_streamed_bytes", streamed)
+    assert read(traced) == pytest.approx(75.0)
+    assert read({"trace": None}) is None
+    _off_span()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with L.span("serve.step") as sp:
+            sp.count("serve.step.h2d_bytes", 1000)
+    assert read(traced) is None
+    _off_span()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with L.span("serve.admit"):
             pass
     assert read(traced) is None
 
@@ -289,7 +348,8 @@ def test_a_reader_sees_only_the_newest_stretch():
     assert [sp.name for sp in st.spans] == [
         "serve.step.assemble", "serve.step.replay", "serve.step"]
     assert st.counters == {"serve.step.h2d_bytes":
-                           sum(t.nbytes for t in eng._x_host)}
+                           sum(t.nbytes for t in eng._x_host),
+                           "serve.step.h2d_streamed_bytes": 0}
 
 
 @pytest.mark.cuda
